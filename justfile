@@ -18,29 +18,18 @@ view-workman scene="assets/scenes/default.toml":
 test:
     python -m pytest tests/ -x -q
 
-# Throughput benchmark (TPU). BENCH_SCENE=house|default|suzanne|
+# Throughput benchmark (GPU). BENCH_SCENE=house|default|suzanne|
 # suzanne_hi, BENCH_MODE=freerun|sync, BENCH_SIZE/ITERS/STEPS.
 bench scene="house":
     BENCH_SCENE={{scene}} python bench.py
 
-# TPU-only parity checks + the per-round JSON artifact.
-smoke round="r05":
-    python scripts/tpu_smoke.py --json docs/tpu_smoke_{{round}}.json
+# On-card parity checks and the main path at 2048^2 (GPU).
+chip-smoke:
+    python chip_smoke.py
 
 # Viewer frame rate (converge + moving) at the default viewer config.
 viewer-fps scene="default":
     python scripts/viewer_fps.py {{scene}}
-
-# Resumable large-mesh experiment sweeps (TPU): round4_sweep.py and
-# round5_sweep.py are both resumable; default is the round-5 matrix.
-sweep log="/tmp/round5_sweep.jsonl":
-    python scripts/round5_sweep.py {{log}}
-
-# Raised-ceiling (RT_MAX_CHUNKED_TRIS) hardware image check on the
-# 991k-tri scene: `transparency` = kernel vs shortlist-disabled kernel
-# (must be bitwise), `composed` = kernel vs composed body (statistical).
-xxhi-check mode="transparency":
-    python scripts/xxhi_image_check.py 128 1 {{mode}}
 
 # Compile-check the driver entry points.
 graft-check:

@@ -1,4 +1,4 @@
-// Native host-side builders for the TPU path tracer.
+// Native host-side builders for the path tracer.
 //
 // The reference implements its host runtime in Rust (src/bvh.rs SAH
 // builder, src/environments.rs Vose alias tables); here the equivalents

@@ -1,6 +1,6 @@
-"""rsoderh_raytracing_tpu — a TPU-native progressive Monte Carlo path tracer.
+"""rsoderh_raytracing_tpu — a progressive Monte Carlo path tracer on JAX.
 
-A ground-up JAX/XLA/Pallas re-design of the capabilities of the reference
+A ground-up JAX/XLA re-design of the capabilities of the reference
 renderer INDA25PlusPlus/rsoderh-raytracing (Rust + WGSL + wgpu):
 
 - TOML scene descriptions (same schema: ``[[material]]``, ``[[object]]``
@@ -10,10 +10,10 @@ renderer INDA25PlusPlus/rsoderh-raytracing (Rust + WGSL + wgpu):
   estimation and power-heuristic MIS, progressive per-sample accumulation,
   ACES tonemapping.
 - The render inner loop is a wavefront of rays batched across
-  pixels x samples, jitted on TPU; intersection runs as dense vectorized
-  primitive tests (VPU/MXU friendly) with optional Pallas kernels; scaling
-  across chips uses ``jax.sharding.Mesh`` + ``shard_map`` with ``psum``
-  sample reduction.
+  pixels x samples, jitted for the GPU; intersection runs as dense
+  vectorized primitive tests or a flat-BVH walk, chosen per backend
+  (routing.py); scaling across devices uses ``jax.sharding.Mesh`` +
+  ``shard_map`` with ``psum`` sample reduction.
 
 Host-side scene building (TOML/OBJ parsing, SAH BVH build, alias tables)
 lives in numpy with an optional C++ native fast path.

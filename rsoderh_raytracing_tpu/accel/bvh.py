@@ -11,9 +11,9 @@ Re-implements the PBRT-style builder of the reference (src/bvh.rs):
   parent+1, `primitives_or_second_child_index` holds the second child
   (interior) or the primitive start offset (leaf) (src/bvh.rs:81-99).
 
-The builder is pure numpy; traversal consumers are
-ops/bvh_traverse.py (parity while_loop) and the tile-culling path in
-ops/pallas_intersect.py. A C++ native fast path (native/) takes over for
+The builder is pure numpy; its traversal consumer is
+ops/bvh_traverse.py (parity while_loop), and scene/cluster.py derives
+storage orders from it. A C++ native fast path (native/) takes over for
 large triangle counts.
 """
 

@@ -3,7 +3,7 @@
 Keeps the reference's flag surface (src/cli.rs:10-46): ``--scene``
 (required, repeatable, last one wins), ``--state`` (base64 camera, exit
 code 2 on bad keyboard config), ``--movement-keys``, ``--other-keys`` —
-plus headless-first extensions (the TPU build renders to files by
+plus headless-first extensions (this build renders to files by
 default; the interactive viewer is opt-in via ``--view``):
 
     --resolution WxH   output resolution          (default 512x512)
@@ -28,7 +28,7 @@ import time
 def build_parser() -> argparse.ArgumentParser:
     parser = argparse.ArgumentParser(
         prog="rsoderh_raytracing_tpu",
-        description="TPU-native progressive Monte Carlo path tracer.",
+        description="Progressive Monte Carlo path tracer on JAX.",
     )
     parser.add_argument(
         "--movement-keys",
@@ -67,8 +67,8 @@ def build_parser() -> argparse.ArgumentParser:
         "--intersector",
         choices=("auto", "sweep", "bvh"),
         default="auto",
-        help="auto: dense sweeps / chunked kernels while any covers the"
-        " scene, flat-BVH traversal past every kernel ceiling."
+        help="auto: the backend's measured route (dense sweep below its"
+        " crossover, flat-BVH traversal above)."
         " sweep: dense vectorized primitive tests (fastest for"
         " reference-scale scenes). bvh: flat-BVH traversal.",
     )
@@ -110,6 +110,10 @@ def main(argv=None) -> int:
             jax.config.update("jax_platforms", platforms)
         except Exception:  # backends already initialized; keep going
             pass
+
+    from rsoderh_raytracing_tpu.utils.compile_cache import enable_compile_cache
+
+    enable_compile_cache()
 
     from rsoderh_raytracing_tpu.scene.camera import Camera, KeyboardLayout
 

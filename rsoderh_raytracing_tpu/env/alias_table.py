@@ -7,7 +7,7 @@ pairing; unpaired leftovers become identity entries with probability 1.
 
 The table is consumed on-device by ops/envmap.py: three arrays
 (probability, alias_index, pmf) instead of the reference's interleaved
-16-byte struct — SoA suits TPU gathers.
+16-byte struct — SoA suits vectorised gathers.
 
 A C++ native fast path (native/) accelerates the pairing loop for
 multi-megapixel HDRIs; the numpy/Python fallback below is identical.

@@ -3,7 +3,7 @@
 Parallels the reference's EnvironmentMaps (src/environments.rs:8-85): N
 equirect HDRIs with per-pixel luminance*sin(theta) alias tables. The
 reference concatenates all alias tables into one buffer with per-env
-metadata {width, height, start_index}; on TPU each environment is its own
+metadata {width, height, start_index}; here each environment is its own
 pytree of static-shape arrays and the *active* environment is selected
 host-side (switching environments resets progressive accumulation anyway,
 so it is a recompile-free array swap, not traced control flow).
@@ -73,10 +73,8 @@ class Environment:
 class DeviceEnvironment:
     """The active environment on device. Consumed by ops/envmap.py.
 
-    TPU gathers are ROW-RATE bound (~80-90 Mrows/s for rows <= 32 bytes,
-    measured, independent of index coherence), so the sampling arrays
-    are packed to minimize gathered rows per path segment — and each row
-    to the 16-byte sweet spot:
+    The sampling arrays are packed to minimize gathered rows per path
+    segment, each row 16 bytes:
     - `quad`: (H*W, 4) uint32 — RGBE-encoded neighbor-packed texels
       [c00 c10 c01 c11]: ONE 16-byte gather serves a full bilinear fetch
       AND (via in-register pmf recompute) the MIS pdf of its texel.

@@ -1,16 +1,15 @@
-"""Vectorized BVH traversal in pure JAX (parity/reference path).
+"""Vectorized BVH traversal in pure JAX.
 
 Replicates cast_ray_bvh (shader.wgsl:469-564): per-ray explicit stack of
 node indices (depth 64), front-to-back child ordering by ray direction
 sign on the node's split axis, leaf = linear primitive loop.
 
-On TPU this runs as a `lax.while_loop` whose body advances EVERY ray one
-node per iteration with (N,)-wide gathers — correct and memory-light but
-latency-bound; it exists (a) as the semantic reference for traversal,
-(b) to validate the flat BVH arrays against brute force, and (c) for
-huge scenes where dense testing stops being a win. The production path
-for the reference's scene sizes is ops/intersect.py (dense) and
-ops/pallas_intersect.py (tiled).
+It runs as a lockstep `lax.while_loop` whose body advances EVERY ray one
+node per iteration with (N,)-wide gathers. It serves (a) as the semantic
+reference for traversal, (b) to validate the flat BVH arrays against
+brute force, and (c) for scenes past the backend's dense-sweep crossover
+(routing.py). The dense path for the reference's scene sizes is
+ops/intersect.py.
 
 Unlike the WGSL megakernel, the leaf primitive test here is fused: leaf
 primitives are tested via the same batched geometry kernels, bounded by
@@ -26,6 +25,7 @@ import jax
 import jax.numpy as jnp
 
 
+from rsoderh_raytracing_tpu import routing
 from rsoderh_raytracing_tpu.accel.bvh import FlatBVH, TRAVERSAL_STACK_DEPTH
 from rsoderh_raytracing_tpu.ops import geometry as geo
 from rsoderh_raytracing_tpu.ops.geometry import INF
@@ -89,29 +89,12 @@ def _bitcast_i32(x):
     return jax.lax.bitcast_convert_type(x, jnp.int32)
 
 
-def _use_packed() -> bool:
-    """RT_BVH_PACKED=0/1 overrides; the default is backend-measured
-    (round 5, scripts/bvh_tpu_probe.py): on CPU wide rows LOSE ~1.5x
-    (XLA:CPU turns narrow takes into cheap strided loads), on TPU they
-    WIN 7-11x (suzanne 128^2 walk 0.01 -> 0.07 Mrays/s; 991k-tri
-    suzanne_xxhi 0.002 -> 0.02 — each dynamic gather op carries a high
-    fixed issue cost there, so one (N,9)/(N,16) row per visit beats
-    five-plus narrow takes). Both forms feed identical floats into
-    identical tests — bitwise-equal results (tested)."""
-    import os
-
-    v = os.environ.get("RT_BVH_PACKED")
-    if v is not None:
-        return v == "1"
-    return jax.default_backend() != "cpu"
-
-
 def _node_table(bvh: DeviceBVH):
     """(K, 9) f32: [box min xyz, box max xyz, payload, count, axis] with
     the three i32s BITCAST into f32 lanes (reinterpreted, never
     arithmetic) — ONE gather row per node visit instead of five separate
     takes. Loop-invariant: under jit XLA hoists it out of the traversal
-    while_loop. Opt-in via RT_BVH_PACKED (see _use_packed)."""
+    while_loop. Chosen per backend by routing.bvh_packed."""
     return jnp.concatenate(
         [
             bvh.nodes_min,
@@ -189,9 +172,9 @@ def _leaf_test(scene, bvh: DeviceBVH, prim_table, ro, rd, start, count):
     """Test up to max_leaf primitives starting at `start` for each ray.
 
     Returns (t, prim_slot) where prim_slot indexes bvh.prim_* arrays,
-    or (INF, -1). With prim_table (RT_BVH_PACKED) each slot costs ONE
-    (N, 16) gather; otherwise type/index takes + per-type constant
-    takes, which XLA:CPU compiles measurably faster (see _use_packed).
+    or (INF, -1). With prim_table (routing.bvh_packed) each slot costs
+    ONE (N, 16) gather; otherwise type/index takes + per-type constant
+    takes, which XLA:CPU compiles measurably faster.
     Both forms feed IDENTICAL float values into identical tests, so
     results are bitwise equal (tested)."""
     n = ro.shape[0]
@@ -274,7 +257,9 @@ def _plane_t(ro, rd, pos, normal, bcm):
     ok = jnp.abs(denom) >= geo.PLANE_DENOM_EPS
     t = jnp.sum(normal * (pos - ro), axis=-1) / jnp.where(ok, denom, 1.0)
     inter = ro + rd * t[..., None] - pos
-    local = jnp.einsum("nij,nj->ni", bcm, inter)
+    local = jnp.einsum(
+        "nij,nj->ni", bcm, inter, precision=jax.lax.Precision.HIGHEST
+    )
     in_bounds = (
         (local[..., 0] >= 0)
         & (local[..., 0] <= 1)
@@ -325,7 +310,7 @@ def traverse_closest(scene: DeviceScene, bvh: DeviceBVH, ro, rd):
     walk and the reference order argument above."""
     n = ro.shape[0]
     rd_inv = 1.0 / rd
-    packed = _use_packed()
+    packed = routing.bvh_packed()
     node_table = _node_table(bvh) if packed else None
     prim_table = _prim_table(scene, bvh) if packed else None
 
@@ -478,7 +463,7 @@ def traverse_any(scene: DeviceScene, bvh: DeviceBVH, ro, rd):
     """
     n = ro.shape[0]
     rd_inv = 1.0 / rd
-    packed = _use_packed()
+    packed = routing.bvh_packed()
     node_table = _node_table(bvh) if packed else None
     prim_table = _prim_table(scene, bvh) if packed else None
 

@@ -1,10 +1,10 @@
 """Device-side HDRI environment sampling (equirect + alias table).
 
-TPU re-design of shader.wgsl:663-831: alias-table lookups become jnp
-gathers over SoA arrays; the wgpu Linear/ClampToEdge sampler becomes an
-explicit 4-tap bilinear gather. Texture width/height are static Python
-ints under jit (baked from the array shape), so all the index math
-compiles to pure integer VPU ops.
+Vectorised re-design of shader.wgsl:663-831: alias-table lookups become
+jnp gathers over SoA arrays; the wgpu Linear/ClampToEdge sampler becomes
+an explicit 4-tap bilinear gather. Texture width/height are static
+Python ints under jit (baked from the array shape), so all the index
+math compiles to pure integer ops.
 
 Device constant PI = 3.14159 matches the shader (shader.wgsl:239).
 """

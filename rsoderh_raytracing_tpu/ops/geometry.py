@@ -1,11 +1,11 @@
 """Batched ray-primitive intersection math.
 
 All functions take a ray batch (origins (N,3), unit directions (N,3)) and
-a padded primitive SoA, and return dense (N, P) hit matrices — the TPU
-formulation of the reference's per-thread primitive switch
+a padded primitive SoA, and return dense (N, P) hit matrices — the
+vectorised formulation of the reference's per-thread primitive switch
 (shader.wgsl:295-466): instead of one ray walking primitives with
-branches, N rays test P primitives as one regular vectorized block that
-XLA maps onto the VPU.
+branches, N rays test P primitives as one regular elementwise block that
+XLA fuses.
 
 Epsilon constants and tie-break/flip semantics are kept identical to the
 reference so images agree at equal sample counts:
@@ -96,7 +96,9 @@ def plane_distances(ro, rd, pln_pos, pln_normal, pln_bcm, pln_valid):
     inter = ro[:, None, :] + rd[:, None, :] * t[..., None]  # (N,P,3)
     local = inter - pln_pos[None, :, :]
     # plane-space coords: bcm (P,3,3) @ local (N,P,3)
-    plane_space = jnp.einsum("pij,npj->npi", pln_bcm, local)
+    plane_space = jnp.einsum(
+        "pij,npj->npi", pln_bcm, local, precision=jax.lax.Precision.HIGHEST
+    )
     in_bounds = (
         (plane_space[..., 0] >= 0.0)
         & (plane_space[..., 0] <= 1.0)
@@ -167,8 +169,7 @@ def triangle_hit_attributes(ro, rd, a, e0, e1, n0, n1, n2):
 # (o, d, m = o x d, |o|^2, d.o, d.d) times PER-PRIMITIVE constants
 # precomputed in scene/device.py. The sweep is then pure
 # (N,1) * (1,K) broadcast arithmetic that XLA fuses into the closest-hit
-# reduction with no 3-vector intermediates — the TPU-native shape of
-# shader.wgsl:295-466. Derivations:
+# reduction with no 3-vector intermediates. Derivations:
 #   det    = d . (e1 x e0)
 #   u*det  = (o x d) . e1 + d . (a x e1)
 #   v*det  = -((o x d) . e0 + d . (a x e0))

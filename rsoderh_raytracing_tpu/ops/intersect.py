@@ -1,21 +1,15 @@
 """Scene-level closest-hit / any-hit queries over ray batches.
 
-This is the TPU-native replacement for the reference's per-thread
-``cast_ray`` (shader.wgsl:566-601): instead of one ray walking a BVH with
-a divergent 64-deep stack, a batch of N rays tests all padded primitives
-as dense sweeps and reduces to the closest winner. For the reference's
-own scenes (tens to ~1k primitives) this is faster on TPU than any
-divergent traversal — regular VPU work with no gathers in the hot loop.
-
-Two sweep backends produce identical (t, type, index) results:
-- ops/pallas_intersect.py — unrolled Pallas kernel (default on TPU for
-  small primitive counts; hard kernel boundary, no (N,P) intermediates),
-- ops/geometry.py::*_fast — XLA broadcast formulation (CPU, big scenes).
+The vectorised counterpart of the reference's per-thread ``cast_ray``
+(shader.wgsl:566-601): a batch of N rays tests all padded primitives as
+dense sweeps (ops/geometry.py::*_fast, broadcast arithmetic that XLA
+fuses into the min/argmin reductions) and reduces to the closest winner.
 Winner attributes (normals, materials) are reconstructed afterwards from
-(type, index) with cheap small-table gathers.
+(type, index) with small-table gathers.
 
-Larger scenes can also route through ops/bvh_traverse.py (BVH-guided,
-parity semantics with the reference's traversal).
+Scenes with a BVH attached (scene/device.py, routing.py) route through
+ops/bvh_traverse.py instead (BVH-guided, parity semantics with the
+reference's traversal).
 
 Semantics notes vs the reference:
 - `closest_hit` is mathematically what cast_ray computes (BVH walk plus
@@ -29,10 +23,13 @@ Semantics notes vs the reference:
 
 from __future__ import annotations
 
+import types
+
+import jax
 import jax.numpy as jnp
 
+from rsoderh_raytracing_tpu import routing
 from rsoderh_raytracing_tpu.ops import geometry as geo
-from rsoderh_raytracing_tpu.ops import pallas_intersect
 from rsoderh_raytracing_tpu.ops.geometry import INF, HitRecord
 from rsoderh_raytracing_tpu.scene.device import DeviceScene
 
@@ -41,18 +38,103 @@ def _take(arr, idx):
     return jnp.take(arr, idx, axis=0)
 
 
+# A type with at most this many padded lanes is reduced in one fusion on
+# every backend. On the H100 at 2048^2 such 8-lane reductions compile in
+# seconds, while one fusion over 56 or more lanes did not compile within
+# 180 s (PERF.md "Routing").
+ONE_REDUCTION_LANES = 8
+
+# Per primitive type: its distance function and the scene fields it reads.
+_SWEEPS = {
+    "sph": (geo.sphere_distances_fast, ("sph_pos", "sph_c2", "sph_valid")),
+    "pln": (
+        geo.plane_distances_fast,
+        ("pln_normal", "pln_ndotp", "pln_r0", "pln_r2", "pln_r0dotp",
+         "pln_r2dotp", "pln_valid"),
+    ),
+    "tri": (
+        geo.triangle_distances_fast,
+        ("tri_cdet", "tri_edge0", "tri_edge1", "tri_cu", "tri_cv", "tri_n",
+         "tri_adotn", "tri_valid"),
+    ),
+}
+
+
+def _windows(scene: DeviceScene, kind: str):
+    """This type's fields as (steps, width, ...) stacks for a windowed
+    sweep, or None when it is reduced in one fusion: always where
+    routing.sweep_window is None, and for a type of at most
+    ONE_REDUCTION_LANES lanes. The width is the routing window, or half
+    the lanes for a type with fewer than two windows' worth, so a scan
+    always has at least two steps; the last window is padded with
+    invalid rows, which never hit."""
+    window = routing.sweep_window()
+    fields = _SWEEPS[kind][1]
+    lanes = getattr(scene, fields[-1]).shape[0]
+    if window is None or lanes <= ONE_REDUCTION_LANES:
+        return None
+    width = window if lanes >= 2 * window else -(-lanes // 2)
+    steps = -(-lanes // width)
+    out = {}
+    for f in fields:
+        x = getattr(scene, f)
+        pad = jnp.zeros((steps * width - lanes,) + x.shape[1:], x.dtype)
+        out[f] = jnp.concatenate([x, pad]).reshape(
+            (steps, width) + x.shape[1:]
+        )
+    return out
+
+
+def _closest(scene: DeviceScene, kind: str, ro, rd):
+    """(min t, argmin) over one primitive type. Windowed, it scans the
+    lanes one window at a time and returns the same values and the same
+    lowest-index tie-break as one argmin over all lanes: a later window
+    wins only on a strictly smaller t."""
+    dist = _SWEEPS[kind][0]
+    windows = _windows(scene, kind)
+    if windows is None:
+        t = dist(ro, rd, scene)
+        return jnp.min(t, axis=1), jnp.argmin(t, axis=1).astype(jnp.int32)
+    n = ro.shape[0]
+    width = next(iter(windows.values())).shape[1]
+
+    def body(carry, w):
+        best_t, best_i, base = carry
+        t = dist(ro, rd, types.SimpleNamespace(**w))
+        d = jnp.min(t, axis=1)
+        i = jnp.argmin(t, axis=1).astype(jnp.int32) + base
+        better = d < best_t
+        return (
+            jnp.where(better, d, best_t),
+            jnp.where(better, i, best_i),
+            base + width,
+        ), None
+
+    init = (jnp.full((n,), INF), jnp.zeros((n,), jnp.int32), jnp.int32(0))
+    (d, i, _), _ = jax.lax.scan(body, init, windows)
+    return d, i
+
+
+def _any(scene: DeviceScene, kind: str, ro, rd):
+    """True where any primitive of one type blocks the ray."""
+    dist = _SWEEPS[kind][0]
+    windows = _windows(scene, kind)
+    if windows is None:
+        return jnp.any(dist(ro, rd, scene) < INF, axis=1)
+
+    def body(hit, w):
+        t = dist(ro, rd, types.SimpleNamespace(**w))
+        return hit | jnp.any(t < INF, axis=1), None
+
+    hit, _ = jax.lax.scan(body, jnp.zeros((ro.shape[0],), bool), windows)
+    return hit
+
+
 def _sweep_xla(scene: DeviceScene, ro, rd):
     """(t, type, index) closest winner via the XLA broadcast sweep."""
-    t_sph = geo.sphere_distances_fast(ro, rd, scene)
-    t_pln = geo.plane_distances_fast(ro, rd, scene)
-    t_tri = geo.triangle_distances_fast(ro, rd, scene)
-
-    i_sph = jnp.argmin(t_sph, axis=1).astype(jnp.int32)
-    d_sph = jnp.min(t_sph, axis=1)
-    i_pln = jnp.argmin(t_pln, axis=1).astype(jnp.int32)
-    d_pln = jnp.min(t_pln, axis=1)
-    i_tri = jnp.argmin(t_tri, axis=1).astype(jnp.int32)
-    d_tri = jnp.min(t_tri, axis=1)
+    d_sph, i_sph = _closest(scene, "sph", ro, rd)
+    d_pln, i_pln = _closest(scene, "pln", ro, rd)
+    d_tri, i_tri = _closest(scene, "tri", ro, rd)
 
     dists = jnp.stack([d_sph, d_pln, d_tri], axis=1)
     which = jnp.argmin(dists, axis=1).astype(jnp.int32)
@@ -84,12 +166,8 @@ def _sweep_bvh(scene: DeviceScene, ro, rd):
     t = jnp.where(hit, t, INF)
 
     # Linear fallback on BVH miss: spheres + planes only, like cast_ray.
-    t_sph = geo.sphere_distances_fast(ro, rd, scene)
-    t_pln = geo.plane_distances_fast(ro, rd, scene)
-    i_sph = jnp.argmin(t_sph, axis=1).astype(jnp.int32)
-    d_sph = jnp.min(t_sph, axis=1)
-    i_pln = jnp.argmin(t_pln, axis=1).astype(jnp.int32)
-    d_pln = jnp.min(t_pln, axis=1)
+    d_sph, i_sph = _closest(scene, "sph", ro, rd)
+    d_pln, i_pln = _closest(scene, "pln", ro, rd)
     fb_t = jnp.minimum(d_sph, d_pln)
     fb_type = jnp.where(
         fb_t < INF, jnp.where(d_sph <= d_pln, 0, 1), -1
@@ -107,8 +185,6 @@ def _sweep_bvh(scene: DeviceScene, ro, rd):
 def _sweep(scene: DeviceScene, ro, rd):
     if scene.bvh is not None:
         return _sweep_bvh(scene, ro, rd)
-    if pallas_intersect.sweep_supported(scene):
-        return pallas_intersect.closest_sweep(scene, ro, rd)
     return _sweep_xla(scene, ro, rd)
 
 
@@ -166,17 +242,13 @@ def closest_hit(scene: DeviceScene, ro, rd) -> HitRecord:
 
 
 def trace_nee(scene: DeviceScene, ro, rd, nee_dir):
-    """Fused per-segment trace for the wavefront integrator: closest hit,
+    """Per-segment trace for the wavefront integrator: closest hit,
     shading attributes + material values, and NEE occlusion from the hit
-    point along `nee_dir` — ONE Pallas kernel on TPU (the composed path's
-    winner-attribute gathers and extra kernel boundaries cost ~20 ns/lane
-    at 2048^2, measured), identical values composed from closest_hit /
-    material takes / any_hit elsewhere.
+    point along `nee_dir`, composed from closest_hit / material takes /
+    any_hit.
 
     Returns (did_hit (N,), point (N,3), normal (N,3), color (N,3),
     roughness (N,), metallic (N,), emission (N,3), occluded (N,))."""
-    if scene.bvh is None and pallas_intersect.fused_supported(scene):
-        return pallas_intersect.fused_trace(scene, ro, rd, nee_dir)
     hit = closest_hit(scene, ro, rd)
     color = _take(scene.mat_color, hit.material_id)
     rough = _take(scene.mat_roughness, hit.material_id)
@@ -206,13 +278,8 @@ def any_hit(scene: DeviceScene, ro, rd):
         from rsoderh_raytracing_tpu.ops.bvh_traverse import traverse_any
 
         return traverse_any(scene, scene.bvh, ro, rd)
-    if pallas_intersect.sweep_supported(scene):
-        return pallas_intersect.any_sweep(scene, ro, rd)
-    t_sph = geo.sphere_distances_fast(ro, rd, scene)
-    t_pln = geo.plane_distances_fast(ro, rd, scene)
-    t_tri = geo.triangle_distances_fast(ro, rd, scene)
     return (
-        jnp.any(t_sph < INF, axis=1)
-        | jnp.any(t_pln < INF, axis=1)
-        | jnp.any(t_tri < INF, axis=1)
+        _any(scene, "sph", ro, rd)
+        | _any(scene, "pln", ro, rd)
+        | _any(scene, "tri", ro, rd)
     )

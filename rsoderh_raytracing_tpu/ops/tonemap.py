@@ -8,6 +8,7 @@ divide. Negative inputs are highlighted magenta, as in the reference.
 
 from __future__ import annotations
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 
@@ -31,13 +32,18 @@ _M2 = np.array(
 )
 
 
+def _matvec(x, m):
+    """x @ m.T in full f32 (a default-precision dot may run in TF32)."""
+    return jnp.dot(x, m.T, precision=jax.lax.Precision.HIGHEST)
+
+
 def aces_tonemap(hdr):
     """(..., 3) linear HDR -> (..., 3) tonemapped in [0,1]."""
     negative = jnp.any(hdr < 0.0, axis=-1, keepdims=True)
-    v = hdr @ _M1.T
+    v = _matvec(hdr, _M1)
     a = v * (v + 0.0245786) - 0.000090537
     b = v * (0.983729 * v + 0.4329510) + 0.238081
-    mapped = jnp.clip((a / b) @ _M2.T, 0.0, 1.0)
+    mapped = jnp.clip(_matvec(a / b, _M2), 0.0, 1.0)
     magenta = jnp.array([1.0, 0.0, 1.0], dtype=mapped.dtype)
     return jnp.where(negative, magenta, mapped)
 

@@ -1,11 +1,11 @@
 """The light-transport integrator: one path-traced sample per pixel.
 
-TPU re-design of the reference megakernel (shader.wgsl:1206-1373). The
-per-thread bounce loop becomes a ``lax.scan`` over MAX_BOUNCES carrying a
-flat wavefront of N = H*W rays; terminated lanes are masked, not
-compacted (compaction variants live in render/wavefront.py). Each bounce
-performs two dense intersection sweeps (closest-hit + NEE shadow) over
-the padded primitive arrays — regular, gather-light VPU work.
+Vectorised re-design of the reference megakernel (shader.wgsl:1206-1373).
+The per-thread bounce loop becomes a ``lax.scan`` over MAX_BOUNCES
+carrying a flat wavefront of N = H*W rays; terminated lanes are masked,
+not compacted (the regenerating variant lives in render/wavefront.py).
+Each bounce performs two intersection queries (closest-hit + NEE
+shadow) over the padded primitive arrays.
 
 The estimator is identical to the reference: unidirectional path tracing
 with next-event estimation against the HDRI and power-heuristic MIS,
@@ -51,7 +51,9 @@ def generate_camera_rays(state, pixel_x, pixel_y, camera, resolution):
     ray_cam = jnp.stack(
         [sx * max_y * aspect, sy * max_y, -jnp.ones_like(sx)], axis=-1
     )
-    direction = ray_cam @ camera["rot"].T
+    direction = jnp.dot(
+        ray_cam, camera["rot"].T, precision=jax.lax.Precision.HIGHEST
+    )
     direction = direction / jnp.linalg.norm(direction, axis=-1, keepdims=True)
     origin = jnp.broadcast_to(camera["pos"], direction.shape)
     return state, origin, direction

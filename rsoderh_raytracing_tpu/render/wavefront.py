@@ -3,8 +3,8 @@
 The scan integrator (integrator.py) mirrors the reference megakernel:
 every pixel's path steps through MAX_BOUNCES with dead lanes masked, so
 late bounces waste most of the wavefront and every bounce pays the
-(gather-bound) environment fetches for every lane. This module is the
-TPU-native redesign:
+(gather-bound) environment fetches for every lane. This module keeps
+every lane busy instead:
 
 - **lane == pixel, paths regenerate in place**: when a lane's path
   terminates (miss / pdf 0 / cutoff / depth), the finished radiance is
@@ -16,8 +16,8 @@ TPU-native redesign:
 - **fused environment fetch**: per iteration a lane needs exactly one
   radiance fetch + one pmf fetch — at the NEE sample's uv when it hit, or
   at the escape direction's uv when it missed. Both flow through ONE
-  quad-packed bilinear gather and ONE pmf gather (TPU gathers are
-  byte-bound random reads; see DeviceEnvironment).
+  quad-packed bilinear gather and ONE pmf gather (see
+  DeviceEnvironment).
 
 - identical estimator and RNG streams: each (pixel, sample) path draws
   the same sequence as the scan integrator / reference shader, so the
@@ -28,7 +28,6 @@ Returns the SUM of `spp` samples per pixel in one jitted while_loop.
 
 from __future__ import annotations
 
-import os
 from functools import partial
 
 import jax
@@ -55,7 +54,9 @@ def _camera_rays(state, pixel_x, pixel_y, camera, resolution):
     ray_cam = jnp.stack(
         [sx * max_y * aspect, sy * max_y, -jnp.ones_like(sx)], axis=-1
     )
-    d = ray_cam @ camera["rot"].T
+    d = jnp.dot(
+        ray_cam, camera["rot"].T, precision=jax.lax.Precision.HIGHEST
+    )
     d = d / jnp.linalg.norm(d, axis=-1, keepdims=True)
     o = jnp.broadcast_to(camera["pos"], d.shape)
     return state, o, d
@@ -94,41 +95,9 @@ def render_wavefront(
     return image
 
 
-def _compact_every_default(scene) -> int:
-    """Compaction cadence when the caller passes None: RT_COMPACT_EVERY
-    if set (trace-time constant — fresh process required, like every
-    RT_ knob), else AUTO: shortlist-scale chunked scenes (more chunks
-    than SHORTLIST_MIN_CHUNKS) default to K=2, the measured optimum of
-    the round-4 cadence sweep on suzanne_hi (K=1: 4.96, K=2: 6.19,
-    K=4: 5.96, K=8: 5.50 Mrays/s vs 3.8-4.3 uncompacted — compaction
-    is bit-transparent, so the default only moves throughput). Small
-    chunk grids keep 0: the sort buys nothing where tiles sweep few
-    chunks (suzanne compact16 measured 37.9 vs 39.2 baseline)."""
-    import os
-
-    env = os.environ.get("RT_COMPACT_EVERY")
-    if env is not None:
-        return int(env)
-    from rsoderh_raytracing_tpu.ops import pallas_intersect as pint
-
-    if (
-        pint.chunked_trace_supported(scene)
-        and pint.scene_chunk_count(scene) > pint.SHORTLIST_MIN_CHUNKS
-    ):
-        # Huge grids compact EVERY iteration: the sort (38 ms) is noise
-        # against multi-second sweep iterations and coherence is the
-        # whole game (suzanne_xhi K=1/2/4 = 0.89/0.84/0.61 Mrays/s).
-        if pint.scene_chunk_count(scene) > 1024:
-            return 1
-        return 2
-    return 0
-
-
 @partial(
     jax.jit,
-    static_argnames=(
-        "resolution", "max_bounces", "with_stats", "compact_every"
-    ),
+    static_argnames=("resolution", "max_bounces", "with_stats"),
 )
 def render_freerun(
     scene: DeviceScene,
@@ -139,7 +108,6 @@ def render_freerun(
     iterations,
     max_bounces: int = MAX_BOUNCES,
     with_stats: bool = False,
-    compact_every: int | None = None,
 ):
     """Iteration-budget rendering: every lane stays busy for `iterations`
     path segments, completing a VARIABLE number of samples per pixel
@@ -162,7 +130,6 @@ def render_freerun(
         jnp.uint32(0xFFFFFFFF),  # no sample quota
         iterations,
         max_bounces,
-        compact_every=compact_every,
     )
     if with_stats:
         return image, counts, stats
@@ -189,21 +156,13 @@ def render_spp_sync(
     regeneration) before the next round starts. Per-(pixel, sample)
     paths and RNG streams are identical to render_wavefront /
     render_freerun, and per-lane film accumulation happens in the same
-    sample order, so the image equals render_wavefront(spp=rounds) —
-    bitwise on the composed path (CPU tests assert it: both modes
-    compute every camera ray in _camera_rays). On the TPU kernel path
-    rounds >= 1 launch their camera rays from the XLA prologue while
-    the wavefront's regenerated samples compute them IN-KERNEL —
-    identical RNG draws, ulp-different float directions — so agreement
-    there is estimator-level (scripts/tpu_smoke.py measures it:
-    <0.5% non-flipped relative RMSE at 2 rounds).
+    sample order, so the image equals render_wavefront(spp=rounds)
+    bitwise (CPU tests assert it: both modes compute every camera ray
+    in _camera_rays).
 
     The trade vs free-run: lane utilization is LOWER (lanes idle while
-    the round's deepest path finishes) but every lane in a tile is at
-    the same bounce depth, so the big-scene chunk culls also fire for
-    bounce-0 iterations of mesh-covering blocks (free-run only gets
-    coherence in blocks whose paths are all one segment). Which wins is
-    scene-dependent — measured on TPU in PERFORMANCE.md.
+    the round's deepest path finishes) but every lane of a round is at
+    the same bounce depth.
 
     base_counts: per-pixel starting sample index, (H, W) uint32 or
     scalar. Returns (sum image (H,W,3), counts (H,W) uint32[, stats]);
@@ -276,18 +235,13 @@ def render_spp_sync(
     return image, counts
 
 
-# Block-major lane order: one sweep tile (pallas_intersect.SUBLANES x
-# LANES lanes) covers a BLOCK_H x BLOCK_W pixel RECTANGLE instead of a
-# few full-width rows. Rays in a rectangle share a narrow frustum, so
-# the chunked kernels' per-tile chunk-AABB culls actually fire: blocks
-# that never see the mesh (sky / plane-only regions regenerate a
-# coherent primary ray every iteration — their paths are one segment
-# long) skip every triangle chunk, even in free-run where bounce depth
-# desynchronizes within mesh-covering blocks. Pure layout transform:
-# each lane still owns exactly one pixel's RNG stream, so per-pixel
-# results are bitwise identical to the row-major order.
-BLOCK_H = 64  # = pallas_intersect.SUBLANES (the sweep tile height)
-BLOCK_W = 128  # = pallas_intersect.LANES
+# Block-major lane order: each run of BLOCK_H x BLOCK_W consecutive
+# lanes covers a pixel RECTANGLE instead of a few full-width rows, so
+# neighbouring lanes hold rays with a narrow shared frustum. Pure layout
+# transform: each lane still owns exactly one pixel's RNG stream, so
+# per-pixel results are bitwise identical to the row-major order.
+BLOCK_H = 64
+BLOCK_W = 128
 
 
 def _lane_order(width, height):
@@ -347,7 +301,6 @@ def _wavefront_loop(
     spp,
     iteration_budget,
     max_bounces: int = MAX_BOUNCES,
-    compact_every: int | None = None,
 ):
     width, height = resolution
     n = width * height
@@ -377,7 +330,6 @@ def _wavefront_loop(
         spp,
         iteration_budget,
         max_bounces,
-        compact_every=compact_every,
     )
     return from_lanes(img), from_lanes(counts), stats
 
@@ -395,7 +347,6 @@ def wavefront_loop_custom(
     spp,
     iteration_budget,
     max_bounces: int = MAX_BOUNCES,
-    compact_every: int | None = None,
 ):
     """Core regeneration loop over an explicit lane set.
 
@@ -411,61 +362,6 @@ def wavefront_loop_custom(
     n = pixel_index.shape[0]
     spp = jnp.asarray(spp, jnp.uint32)
     iteration_budget = jnp.asarray(iteration_budget, jnp.uint32)
-
-    from rsoderh_raytracing_tpu.ops import pallas_intersect, pallas_wavefront
-
-    if pallas_wavefront.supported(scene) and env.quad.dtype == jnp.uint32:
-        return _kernel_loop(
-            scene, env, camera, pixel_index, pixel_x, pixel_y, resolution,
-            base_sample, sample_map, spp, iteration_budget, max_bounces,
-            compact_every=compact_every,
-        )
-
-    if (
-        pallas_intersect.pallas_enabled()
-        and scene.bvh is None
-        and not pallas_intersect.sweep_supported(scene)
-        and jax.default_backend() == "cpu"
-    ):
-        # The cliff is LOUD on CPU: scenes past every kernel path pay
-        # the composed dense sweep, and the flat-BVH walk is measured
-        # 3.3x faster there at 15k tris (PERFORMANCE.md "BVH traversal
-        # path"). On TPU the sweep IS the measured-best composed path
-        # (991k tris: sweep 0.011 vs walk 0.002 Mrays/s) and auto
-        # routes here deliberately, so no warning fires. Deliberate
-        # opt-outs (RT_DISABLE_WFKERNELS / RT_DISABLE_PALLAS) don't
-        # reach here, and neither do scenes the opt-in fori_loop sweep
-        # still covers.
-        import warnings
-
-        n_tri = scene.tri_valid.shape[0]
-        n_sph = scene.sph_radius.shape[0]
-        n_pln = scene.pln_valid.shape[0]
-        if n_tri > pallas_intersect.MAX_CHUNKED_TRIS:
-            reason = (
-                f"{n_tri} padded triangle lanes exceed the chunked "
-                f"ceiling ({pallas_intersect.MAX_CHUNKED_TRIS})"
-            )
-        elif n_sph > pallas_intersect.MAX_CHUNKED_SPHERES:
-            reason = (
-                f"{n_sph} padded sphere lanes exceed the chunked "
-                f"ceiling ({pallas_intersect.MAX_CHUNKED_SPHERES})"
-            )
-        else:
-            reason = (
-                f"{n_pln} padded plane lanes leave no room for a "
-                f"{pallas_intersect.TRI_CHUNK}-row window in the "
-                f"{pallas_intersect.MAX_UNROLL_PRIMS}-lane unroll "
-                "budget (planes are not chunked)"
-            )
-        warnings.warn(
-            f"scene exceeds every Pallas kernel path ({reason}); "
-            "rendering on the composed XLA dense sweep, which is O(P) "
-            "— on CPU, build the scene with intersector='auto'/'bvh' "
-            "(flat-BVH traversal, measured 3.3x faster at this scale)",
-            RuntimeWarning,
-            stacklevel=2,
-        )
 
     env_h, env_w = env.texture_shape[0], env.texture_shape[1]
 
@@ -505,24 +401,27 @@ def wavefront_loop_custom(
 
         # ---- NEE draw first (RNG order per path is unchanged — these
         # are the same four draws in the same sequence) so the alias
-        # gather and the fused trace kernel have no false dependency.
+        # gather and the trace have no false dependency.
         # NEE draws advance every lane, matching the scan/reference
         # stream for live lanes; dead lanes' draws are never observed.
-        state, _, nee_uv, nee_pmf = envmap.sample_alias_index(state, env)
-        nee_dir = envmap.equirect_uv_to_direction(nee_uv)
+        with jax.named_scope("env"):
+            state, _, nee_uv, nee_pmf = envmap.sample_alias_index(state, env)
+            nee_dir = envmap.equirect_uv_to_direction(nee_uv)
 
-        # ---- fused trace: closest hit + attributes + material values +
-        # NEE occlusion from the hit point, one Pallas kernel on TPU.
-        (
-            did_hit,
-            hit_point,
-            hit_normal,
-            mat_color,
-            mat_rough,
-            mat_metal,
-            mat_emission,
-            occluded,
-        ) = trace_nee(scene, ro, rd, nee_dir)
+        # ---- trace: closest hit + attributes + material values + NEE
+        # occlusion from the hit point. The scope names the fusions in a
+        # device trace (scripts/trace_profile.py reads it).
+        with jax.named_scope("trace"):
+            (
+                did_hit,
+                hit_point,
+                hit_normal,
+                mat_color,
+                mat_rough,
+                mat_metal,
+                mat_emission,
+                occluded,
+            ) = trace_nee(scene, ro, rd, nee_dir)
         is_hit = active & did_hit
         is_miss = active & ~did_hit
 
@@ -530,9 +429,10 @@ def wavefront_loop_custom(
         # Exactly TWO gathers per iteration: the packed alias row (NEE
         # index + its pmf) and the quad row (bilinear radiance + the pmf
         # of the MIS pdf's pixel) at either the NEE uv or the escape uv.
-        miss_uv = envmap.direction_to_equirect_uv(rd)
-        fetch_uv = jnp.where(is_hit[:, None], nee_uv, miss_uv)
-        radiance, quad_pmf = envmap.radiance_and_pmf(env, fetch_uv)
+        with jax.named_scope("env"):
+            miss_uv = envmap.direction_to_equirect_uv(rd)
+            fetch_uv = jnp.where(is_hit[:, None], nee_uv, miss_uv)
+            radiance, quad_pmf = envmap.radiance_and_pmf(env, fetch_uv)
         pmf = jnp.where(is_hit, nee_pmf, quad_pmf)
         solid = envmap.pixel_solid_angle(fetch_uv[..., 1], env_w, env_h)
         pdf_env = pmf / solid
@@ -648,464 +548,3 @@ def wavefront_loop_custom(
     }
     return final["film"], final["sample"], stats
 
-
-def _kernel_loop(
-    scene,
-    env,
-    camera,
-    pixel_index,
-    pixel_x,
-    pixel_y,
-    resolution,
-    base_sample,
-    sample_map,
-    spp,
-    iteration_budget,
-    max_bounces,
-    compact_every: int | None = None,
-):
-    """The two-Pallas-kernel body (ops/pallas_wavefront.py): XLA keeps
-    only the alias/quad gathers and the atan2/asin uv math. Identical
-    estimator and RNG streams to the composed body above (the kernels
-    replicate every formula; in-kernel RNG is bitwise-equal).
-
-    Big-triangle scenes (beyond the unroll budget) swap the fused trace
-    kernel for the chunked closest/occlusion sweep kernels plus XLA
-    winner-row takes, feeding one mega-shade kernel
-    (pallas_wavefront.big_shade_call) that holds every elementwise step —
-    normals, materials, NEE shade, GGX sample, MIS, film, regeneration.
-
-    compact_every=K > 0 (big-scene path only): every K iterations the
-    LANES are re-sorted by (dead-last, Morton cell of ray origin,
-    octahedral direction bin) so each 64x128 sweep tile holds rays with
-    a compact spatial footprint — the per-tile chunk culls / shortlists
-    then skip most chunk steps even mid-free-run, where bounce
-    desynchronization otherwise scatters live rays across the whole
-    scene. Pure lane PERMUTATION: every lane carries its full state
-    (pixel identity, RNG stream, path, film slot), so per-pixel results
-    are bitwise identical to compact_every=0 (tested); only which lanes
-    share a tile — and therefore which chunks get culled — changes.
-    Amortized cost is one u32 argsort + one packed row gather per K
-    iterations (round-2 measured the sort at 38 ms @ 4.2M lanes)."""
-    from rsoderh_raytracing_tpu.ops import pallas_intersect as pint
-    from rsoderh_raytracing_tpu.ops import pallas_wavefront as pwf
-
-    use_big = pint.chunked_trace_supported(scene)
-    if compact_every is None:
-        compact_every = _compact_every_default(scene)
-    do_compact = use_big and compact_every > 0
-    # Loop-invariant: XLA hoists the table build out of the while_loop.
-    wtable = pwf.winner_table(scene) if use_big else None
-
-    width, height = resolution
-    n = pixel_index.shape[0]
-    env_h, env_w = env.texture_shape[0], env.texture_shape[1]
-    lanes = pwf.LANES
-    block = pwf.SUBLANES * lanes
-    n_pad = -(-n // block) * block
-    rows = n_pad // lanes
-
-    def tile(arr, fill=0):
-        arr = jnp.asarray(arr)
-        if n_pad != n:
-            arr = jnp.concatenate(
-                [arr, jnp.full((n_pad - n,), fill, arr.dtype)]
-            )
-        return arr.reshape(rows, lanes)
-
-    # Affine probe of sample_map (identity or local*stride+offset — the
-    # only forms used; see parallel/sharding.py).
-    map_offset = jnp.asarray(sample_map(jnp.uint32(0)), jnp.uint32)
-    map_stride = (
-        jnp.asarray(sample_map(jnp.uint32(1)), jnp.uint32) - map_offset
-    )
-
-    # XLA prologue: initial paths (same start_path as the composed body).
-    state0 = rng.seed(pixel_index, sample_map(base_sample))
-    state0, o0, d0 = _camera_rays(
-        state0, pixel_x, pixel_y, camera, resolution
-    )
-
-    scal = jnp.concatenate(
-        [
-            jnp.stack(
-                [
-                    jnp.sin(camera["fov_y"] / 2.0),
-                    jnp.float32(width / height),
-                ]
-            ),
-            camera["pos"].astype(jnp.float32),
-            camera["rot"].astype(jnp.float32).reshape(9),
-            env.pmf_norm.astype(jnp.float32),
-        ]
-    )
-
-    carry0 = dict(
-        state=tile(state0),
-        ro0=tile(o0[:, 0]), ro1=tile(o0[:, 1]), ro2=tile(o0[:, 2]),
-        rd0=tile(d0[:, 0]), rd1=tile(d0[:, 1]), rd2=tile(d0[:, 2], 1.0),
-        tp0=tile(jnp.ones(n)), tp1=tile(jnp.ones(n)), tp2=tile(jnp.ones(n)),
-        inc0=tile(jnp.zeros(n)), inc1=tile(jnp.zeros(n)),
-        inc2=tile(jnp.zeros(n)),
-        last_pdf=tile(jnp.ones(n)),
-        bounce=tile(jnp.zeros(n, jnp.int32)),
-        sample=tile(jnp.zeros(n, jnp.uint32)),
-        in_path=tile(jnp.ones(n, jnp.int32)),
-        film0=tile(jnp.zeros(n)), film1=tile(jnp.zeros(n)),
-        film2=tile(jnp.zeros(n)),
-    )
-    loop0 = dict(
-        carry=carry0,
-        it=jnp.uint32(0),
-        closest=jnp.float32(0.0),
-        shadow=jnp.float32(0.0),
-    )
-    pixidx_t = tile(pixel_index)
-    pixx_t = tile(pixel_x)
-    pixy_t = tile(pixel_y)
-    base_t = tile(base_sample)
-
-    if do_compact:
-        # Lane identity joins the carry so a permutation moves the whole
-        # lane: pixel ids/coords (in-kernel RNG seeds + regen), base
-        # sample, and `home` — the ORIGINAL lane slot, used to scatter
-        # film/counts back to lane order at the end (padding lanes get
-        # home == n_pad and are dropped by the OOB-scatter).
-        carry0.update(
-            pixidx=pixidx_t,
-            pixx=pixx_t,
-            pixy=pixy_t,
-            base=base_t,
-            home=tile(jnp.arange(n, dtype=jnp.uint32), n_pad),
-        )
-        # Scene-extent grid for the Morton origin cells (loop-invariant;
-        # XLA hoists). Planes are unbounded — the grid covers the
-        # chunk-swept geometry (triangles + spheres) plus the camera.
-        tv = scene.tri_valid[:, None]
-        sv = scene.sph_valid[:, None]
-        big = jnp.float32(3.0e38)
-        pts_lo = [
-            jnp.where(tv, scene.tri_a, big),
-            jnp.where(tv, scene.tri_a + scene.tri_edge0, big),
-            jnp.where(tv, scene.tri_a + scene.tri_edge1, big),
-            jnp.where(
-                sv, scene.sph_pos - scene.sph_radius[:, None], big
-            ),
-            camera["pos"].reshape(1, 3),
-        ]
-        pts_hi = [
-            jnp.where(tv, scene.tri_a, -big),
-            jnp.where(tv, scene.tri_a + scene.tri_edge0, -big),
-            jnp.where(tv, scene.tri_a + scene.tri_edge1, -big),
-            jnp.where(
-                sv, scene.sph_pos + scene.sph_radius[:, None], -big
-            ),
-            camera["pos"].reshape(1, 3),
-        ]
-        grid_lo = jnp.concatenate(pts_lo).min(axis=0)
-        grid_hi = jnp.concatenate(pts_hi).max(axis=0)
-        # Key-composition ablation knobs (trace-time constants, like
-        # every RT_ knob — VERDICT r4 task 1b): RT_COMPACT_KEY selects
-        # which components sort the lanes (any choice is a pure lane
-        # permutation, so output stays bit-identical; only cull quality
-        # moves), RT_COMPACT_MORTON_BITS the per-axis cell resolution
-        # (default 5 = 32 cells; <= 8 keeps morton<<7|octa inside u32).
-        #   full   dead-last | morton(origin) << 7 | octa(direction)
-        #   morton dead-last | morton(origin)      (no direction bins)
-        #   dir    dead-last | octa(direction)     (no origin cells)
-        #   dead   dead-last only (live lanes keep argsort's stable
-        #          lane order — measures pure dead-lane packing)
-        _key_mode = os.environ.get("RT_COMPACT_KEY", "full")
-        _morton_bits = min(
-            int(os.environ.get("RT_COMPACT_MORTON_BITS", "5")), 8
-        )
-        _cells = float(1 << _morton_bits)
-        grid_scale = _cells / jnp.maximum(grid_hi - grid_lo, 1e-6)
-
-        def _part1by2(v):
-            # spread the low bits to every 3rd position (u32, 10-bit-safe)
-            v = (v | (v << 16)) & jnp.uint32(0x030000FF)
-            v = (v | (v << 8)) & jnp.uint32(0x0300F00F)
-            v = (v | (v << 4)) & jnp.uint32(0x030C30C3)
-            v = (v | (v << 2)) & jnp.uint32(0x09249249)
-            return v
-
-        def _compact_key(c):
-            """(n_pad,) u32 sort key: live lanes by morton15(origin) <<7
-            | octa7(direction); dead/pad lanes last (their relative
-            order is irrelevant — whole-dead tiles skip every chunk via
-            the live-mask cull)."""
-            def flat(name):
-                return c[name].reshape(-1)
-
-            cell = [
-                # clip in FLOAT first: plane hit points can sit far
-                # outside the tri/sphere grid, and a negative float ->
-                # uint cast is undefined
-                jnp.clip(
-                    (flat(k) - grid_lo[i]) * grid_scale[i],
-                    0.0,
-                    _cells - 1.0,
-                ).astype(jnp.uint32)
-                for i, k in enumerate(("ro0", "ro1", "ro2"))
-            ]
-            morton = (
-                _part1by2(cell[0])
-                | (_part1by2(cell[1]) << 1)
-                | (_part1by2(cell[2]) << 2)
-            )
-            dx, dy, dz = flat("rd0"), flat("rd1"), flat("rd2")
-            s = jnp.abs(dx) + jnp.abs(dy) + jnp.abs(dz)
-            px = dx / s
-            pz = dz / s
-            fold = dy < 0.0
-            pxf = jnp.where(
-                fold, (1.0 - jnp.abs(pz)) * jnp.sign(px), px
-            )
-            pzf = jnp.where(
-                fold, (1.0 - jnp.abs(px)) * jnp.sign(pz), pz
-            )
-            ub = jnp.clip((pxf * 0.5 + 0.5) * 8.0, 0.0, 7.0).astype(
-                jnp.uint32
-            )
-            vb = jnp.clip((pzf * 0.5 + 0.5) * 8.0, 0.0, 7.0).astype(
-                jnp.uint32
-            )
-            octa = (ub << 3) | vb | (fold.astype(jnp.uint32) << 6)
-            if _key_mode == "dead":
-                key = jnp.zeros_like(morton)
-            elif _key_mode == "morton":
-                key = morton
-            elif _key_mode == "dir":
-                key = octa
-            else:
-                key = (morton << jnp.uint32(7)) | octa
-            return jnp.where(
-                flat("in_path") != 0, key, jnp.uint32(0xFFFFFFFF)
-            )
-
-        _CARRY_KEYS = sorted(carry0.keys())
-
-        def _permute_carry(c):
-            order = jnp.argsort(_compact_key(c))
-            # ONE wide-row gather instead of ~25 narrow ones (takes are
-            # per-op bound — PERFORMANCE.md): bitcast everything to u32,
-            # pack columns, permute rows, unpack. Bit-exact round trip.
-            cols = []
-            for k in _CARRY_KEYS:
-                v = c[k].reshape(-1)
-                if v.dtype != jnp.uint32:
-                    v = jax.lax.bitcast_convert_type(v, jnp.uint32)
-                cols.append(v)
-            packed = jnp.take(jnp.stack(cols, axis=1), order, axis=0)
-            out = {}
-            for i, k in enumerate(_CARRY_KEYS):
-                v = packed[:, i]
-                if c[k].dtype != jnp.uint32:
-                    v = jax.lax.bitcast_convert_type(v, c[k].dtype)
-                out[k] = v.reshape(c[k].shape)
-            return out
-
-    def cond(lc):
-        return jnp.any(lc["carry"]["in_path"] != 0)
-
-    def body(lc):
-        c = lc["carry"]
-        if do_compact:
-            c = jax.lax.cond(
-                (lc["it"] % jnp.uint32(compact_every) == 0)
-                & (lc["it"] > 0),
-                _permute_carry,
-                lambda x: x,
-                c,
-            )
-            pix_idx, pix_x, pix_y, base = (
-                c["pixidx"], c["pixx"], c["pixy"], c["base"]
-            )
-        else:
-            pix_idx, pix_x, pix_y, base = pixidx_t, pixx_t, pixy_t, base_t
-        # XLA: NEE alias draw + uv/direction math (gather + atan2/asin).
-        state, _, nee_uv, nee_pmf = envmap.sample_alias_index(
-            c["state"], env
-        )
-        nd = envmap.equirect_uv_to_direction(nee_uv)
-        # direction_to_equirect_uv, componentwise (ops/envmap.py).
-        mu = (
-            jnp.arctan2(c["rd2"], c["rd0"]) * (envmap.INV_PI * 0.5) + 0.5
-        )
-        mv = (
-            0.5 - jnp.arcsin(jnp.clip(c["rd1"], -1.0, 1.0)) * envmap.INV_PI
-        )
-        iscal = jnp.stack(
-            [
-                lc["it"] + jnp.uint32(1),
-                spp,
-                iteration_budget,
-                map_stride,
-                map_offset,
-            ]
-        ).astype(jnp.uint32)
-        nd_t = (nd[..., 0], nd[..., 1], nd[..., 2])
-
-        if use_big:
-            # Chunked sweep kernels + ONE unified winner take
-            # (pallas_wavefront.winner_table union rows; 13 narrow takes
-            # cost 112 ms at 4.2M lanes, one 80B-row take 18 ms —
-            # scripts/takes_microbench.py). The sweep kernels keep their
-            # native 64-sublane blocks when the lane count allows (fewer
-            # grid steps / window DMAs).
-            sub = pint.SUBLANES if rows % pint.SUBLANES == 0 else pwf.SUBLANES
-            # Mid-scale shortlist scenes default to 32-sublane sweep
-            # tiles: the tighter per-tile frusta shorten the
-            # shortlists, and combined with the auto compaction cadence
-            # (K=2) this is the measured round-4 production pick
-            # (suzanne_hi 6.19 Mrays/s vs 3.8-4.3 at the old
-            # 64/uncompacted defaults). HUGE chunk grids keep 64:
-            # halving the tile height doubles the per-tile shortlist
-            # rows, which at suzanne_xhi scale (3,872 chunks) blows the
-            # SMEM budget into G=32 windows that no longer compile
-            # (measured — the 1024-chunk bound keeps auto inside
-            # configs proven on hardware).
-            _n_chunks = pint.scene_chunk_count(scene)
-            if (
-                pint.SHORTLIST_MIN_CHUNKS < _n_chunks <= 1024
-                and rows % 32 == 0
-            ):
-                sub = 32
-            # RT_SWEEP_SUBLANES: explicit override (VERDICT round 3
-            # #2c) — smaller ray blocks mean tighter per-tile frusta
-            # for the chunk culls/shortlists at more per-step overhead.
-            # Fresh process required (trace-time constant, like every
-            # RT_ knob).
-            _sub_env = int(os.environ.get("RT_SWEEP_SUBLANES", "0"))
-            if _sub_env and rows % _sub_env == 0:
-                sub = _sub_env
-            ro_t = (c["ro0"], c["ro1"], c["ro2"])
-            rd_t = (c["rd0"], c["rd1"], c["rd2"])
-            # Dead lanes (finished pixels / drained budget) never have
-            # their sweep results consumed (_shade_core gates everything
-            # on in_path), so they are dropped from the chunk culls.
-            t, btype, bidx = pint.chunked_closest_tiles(
-                scene, ro_t, rd_t, live_mask=c["in_path"], sublanes=sub
-            )
-            did_hit = btype >= 0
-            t_safe = jnp.where(did_hit, t, 0.0)
-            px = c["ro0"] + c["rd0"] * t_safe
-            py = c["ro1"] + c["rd1"] * t_safe
-            pz = c["ro2"] + c["rd2"] * t_safe
-            occ = pint.chunked_any_tiles(
-                scene, (px, py, pz), nd_t,
-                hit_mask=(did_hit & (c["in_path"] != 0)).astype(jnp.int32),
-                sublanes=sub,
-            )
-            n_sph = scene.sph_radius.shape[0]
-            n_pln = scene.pln_valid.shape[0]
-            gidx = jnp.where(
-                btype == 0, bidx,
-                jnp.where(
-                    btype == 1, n_sph + bidx,
-                    jnp.where(btype == 2, n_sph + n_pln + bidx, 0),
-                ),
-            )
-            srow = jnp.take(wtable, gidx, axis=0)
-            slots = tuple(srow[..., i] for i in range(19))
-            tr = dict(
-                hit=did_hit.astype(jnp.int32), occ=occ, btype=btype,
-                px=px, py=py, pz=pz,
-            )
-            # fused fetch uv + quad row index (ops/envmap.py::_quad_fetch)
-            fu = jnp.where(did_hit, nee_uv[..., 0], mu)
-            fv = jnp.where(did_hit, nee_uv[..., 1], mv)
-            x0 = jnp.floor(fu * env_w - 0.5)
-            y0 = jnp.floor(fv * env_h - 0.5)
-            x0i = jnp.clip(x0.astype(jnp.int32), 0, env_w - 1)
-            y0i = jnp.clip(y0.astype(jnp.int32), 0, env_h - 1)
-            qw = jnp.take(env.quad, y0i * env_w + x0i, axis=0)
-            new_carry, act, hitm = pwf.big_shade_call(
-                scene, env_w, env_h, width, height, max_bounces,
-                (qw[..., 0], qw[..., 1], qw[..., 2], qw[..., 3]),
-                tr, slots, nd_t, state, fu, fv, nee_pmf, c,
-                pix_idx, pix_x, pix_y, base, scal, iscal,
-            )
-        else:
-            tr = pwf.trace_call(
-                scene, env_w, env_h,
-                (c["ro0"], c["ro1"], c["ro2"]),
-                (c["rd0"], c["rd1"], c["rd2"]),
-                nd_t,
-                (nee_uv[..., 0], nee_uv[..., 1]),
-                (mu, mv),
-                state,
-            )
-            qw = jnp.take(env.quad, tr["qidx"], axis=0)
-            new_carry, act, hitm = pwf.shade_call(
-                env_w, env_h, width, height, max_bounces,
-                (qw[..., 0], qw[..., 1], qw[..., 2], qw[..., 3]),
-                tr, nee_pmf, c, pix_idx, pix_x, pix_y, base,
-                scal, iscal,
-            )
-        if do_compact:
-            # The shade kernels build the next carry from the path state
-            # only; the lane-identity columns ride along unchanged (in
-            # this iteration's — possibly permuted — order).
-            new_carry = dict(
-                new_carry,
-                pixidx=pix_idx,
-                pixx=pix_x,
-                pixy=pix_y,
-                base=base,
-                home=c["home"],
-            )
-        return dict(
-            carry=new_carry,
-            it=lc["it"] + jnp.uint32(1),
-            closest=lc["closest"] + jnp.sum(act.astype(jnp.float32)),
-            shadow=lc["shadow"] + jnp.sum(hitm.astype(jnp.float32)),
-        )
-
-    final = jax.lax.while_loop(cond, body, loop0)
-    c = final["carry"]
-    if do_compact:
-        # Lanes ended wherever the last permutation left them; scatter
-        # each lane's film/counts back to its ORIGINAL slot. Padding
-        # lanes carry home == n_pad (out of range -> dropped).
-        home = c["home"].reshape(-1)
-        film_flat = jnp.stack(
-            [
-                c["film0"].reshape(-1),
-                c["film1"].reshape(-1),
-                c["film2"].reshape(-1),
-            ],
-            axis=-1,
-        )
-        film = (
-            jnp.zeros((n_pad, 3), jnp.float32)
-            .at[home]
-            .set(film_flat, mode="drop")[:n]
-        )
-        counts = (
-            jnp.zeros((n_pad,), jnp.uint32)
-            .at[home]
-            .set(c["sample"].reshape(-1), mode="drop")[:n]
-        )
-        stats = {
-            "closest_rays": final["closest"],
-            "shadow_rays": final["shadow"],
-            "iterations": final["it"],
-        }
-        return film, counts, stats
-    film = jnp.stack(
-        [
-            c["film0"].reshape(-1)[:n],
-            c["film1"].reshape(-1)[:n],
-            c["film2"].reshape(-1)[:n],
-        ],
-        axis=-1,
-    )
-    counts = c["sample"].reshape(-1)[:n]
-    stats = {
-        "closest_rays": final["closest"],
-        "shadow_rays": final["shadow"],
-        "iterations": final["it"],
-    }
-    return film, counts, stats

@@ -1,20 +1,18 @@
-"""SAH-BVH-derived triangle chunk clustering for the chunked kernel grid.
+"""SAH-BVH-derived triangle chunk clustering.
 
-The chunked Pallas path (ops/pallas_intersect.py) sweeps triangles in
-fixed TRI_CHUNK-row windows and culls whole windows per ray tile by
-their AABBs (in-kernel slab tests + the per-tile shortlist pre-pass), so
-chunk-AABB tightness directly sets how often culls fire. The production
-order is a Morton sort of centroids (scene/device.py _morton_order);
-this module derives tighter orders from the same SAH BVH the framework
-already builds for traversal parity (accel/bvh.py, re-implementing the
-reference's src/bvh.rs builder):
+Chunk-padded scenes (scene/device.py) store triangles in TRI_CHUNK-row
+windows whose AABBs are tight when each window is spatially compact.
+The default order is a Morton sort of centroids (scene/device.py
+_morton_order); this module derives tighter orders from the same SAH
+BVH the framework already builds for traversal parity (accel/bvh.py,
+re-implementing the reference's src/bvh.rs builder):
 
 - ``bvh_dfs_order``: triangles in the BVH's depth-first leaf order.
   A pure storage permutation (drop-in for the Morton sort): consecutive
   TRI_CHUNK windows follow the SAH partition instead of a fixed-grid
   space-filling curve. Measured on suzanne_hi/suzanne_xhi: total
   chunk-AABB surface area -9% / -18% vs Morton at identical chunk
-  counts (scripts/chunk_cluster_probe.py).
+  counts.
 
 - ``treelet_pack``: cut the BVH into maximal subtrees of <= TRI_CHUNK
   triangles, greedily pack DFS-adjacent cuts into TRI_CHUNK-capacity
@@ -32,7 +30,7 @@ reference's src/bvh.rs builder):
 Selection: RT_CHUNK_CLUSTER=morton|bvh|treelet (scene/device.py).
 Like the Morton sort, both are storage-order changes only: the closest
 hit is a min over the same triangle set, so images are bit-identical
-up to measure-zero exact-t ties (tests/test_wavefront.py asserts it).
+up to measure-zero exact-t ties (tests/test_cluster.py asserts it).
 """
 
 from __future__ import annotations

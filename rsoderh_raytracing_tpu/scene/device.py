@@ -1,11 +1,11 @@
 """DeviceScene: the scene as a pytree of padded SoA device arrays.
 
-This is the TPU-side counterpart of the reference's GPU storage buffers
-(src/state.rs:394-458): materials / spheres / planes / triangle data, plus
-the flattened BVH arrays. Unlike the reference (which keeps triangles as
-index triplets into vertex/normal pools and gathers in the kernel), we
-dereference indices on the host into dense per-triangle SoA arrays —
-gather-free, static-shape, VPU-friendly.
+This is the device-side counterpart of the reference's GPU storage
+buffers (src/state.rs:394-458): materials / spheres / planes / triangle
+data, plus the flattened BVH arrays. Unlike the reference (which keeps
+triangles as index triplets into vertex/normal pools and gathers in the
+kernel), we dereference indices on the host into dense per-triangle SoA
+arrays — gather-free and static-shape.
 
 Every primitive array is padded to a multiple of `pad_to` lanes with a
 boolean valid mask so shapes stay static under jit regardless of scene
@@ -21,16 +21,17 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
+from rsoderh_raytracing_tpu import routing
 from rsoderh_raytracing_tpu.scene.types import Scene
 
-# intersector='auto' BVH attach point on CPU: the default kernel
-# ceiling. CPU never runs the Pallas kernels, so this is purely the
-# composed walk-vs-sweep routing boundary there; it deliberately does
-# NOT track ops.pallas_intersect.MAX_CHUNKED_TRIS, which
-# RT_MAX_CHUNKED_TRIS can raise to 1M lanes for the TPU chunked grid
-# (goldens and the CPU bit-compat suite pin the dense sweep below
-# this boundary).
-CPU_BVH_ABOVE_LANES = 262144
+# Padding layout. Scenes whose padded sphere + plane + triangle lanes
+# exceed MAX_UNROLL_PRIMS pad triangles (and, when spheres alone would
+# overflow, spheres) to whole TRI_CHUNK windows, and their triangles are
+# stored in a spatially clustered order. The values are fixed: they
+# decide the device arrays' shapes and storage order, and the CPU goldens
+# are pinned to exactly these arrays.
+TRI_CHUNK = 64
+MAX_UNROLL_PRIMS = 192
 
 
 def _pad_rows(arr: np.ndarray, n: int, fill: float = 0.0) -> np.ndarray:
@@ -138,12 +139,10 @@ def build_device_scene(
     with_bvh=True additionally builds the flat SAH BVH (accel/bvh.py)
     and attaches it, selecting the BVH-guided traversal intersector
     (ops/bvh_traverse.py) instead of the dense sweep. with_bvh="auto"
-    attaches it exactly when the padded lane counts exceed EVERY Pallas
-    kernel path (pallas_intersect.counts_kernel_path) — such scenes
-    would otherwise pay the O(P) composed dense sweep; the reference is
-    O(log P) at any scene size through its per-thread BVH
-    (shader.wgsl:469-564), and the composed flat-BVH traversal is this
-    framework's large-scene analog."""
+    attaches it when the padded triangle lane count passes the
+    backend's measured crossover (routing.attach_bvh): the dense sweep
+    is O(P) per ray, while the reference is O(log P) at any scene size
+    through its per-thread BVH (shader.wgsl:469-564)."""
     materials = scene.materials or []
     m = max(1, len(materials))
     mat_color = np.zeros((m, 3), np.float32)
@@ -157,15 +156,8 @@ def build_device_scene(
         mat_emission[i] = mat.emission
 
     # Spheres. Mirror the triangle chunk-padding rule below: when the
-    # sphere+plane unroll would overflow the chunked kernels' per-step
-    # budget, pad spheres to whole TRI_CHUNK windows so they stream as
-    # sphere chunks (ops/pallas_intersect._chunk_spheres) instead of
-    # silently dropping the scene to the composed XLA sweep.
-    from rsoderh_raytracing_tpu.ops.pallas_intersect import (
-        MAX_UNROLL_PRIMS,
-        TRI_CHUNK,
-    )
-
+    # sphere+plane lanes would overflow MAX_UNROLL_PRIMS, pad spheres to
+    # whole TRI_CHUNK windows.
     s_n = _round_up(len(scene.spheres), pad_to)
     p_n_probe = _round_up(len(scene.planes), pad_to)
     if (
@@ -185,13 +177,10 @@ def build_device_scene(
         sph_valid[i] = True
     if len(scene.spheres):
         # Park trailing invalid (padded) spheres AT the last real
-        # sphere's center (radius 0) rather than the origin: a padded
-        # point only ever enlarges sphere_chunk_bounds' AABBs, and an
-        # origin point would stretch the final partially-filled chunk's
-        # AABB across the whole scene on scenes far from the origin,
-        # making its slab cull and shortlist entry useless (advisor
-        # round-3 finding). Correctness is unaffected either way —
-        # sph_valid masks padded rows out of every sweep.
+        # sphere's center (radius 0) rather than the origin, so a padded
+        # row never stretches a spatial bound of the sphere arrays.
+        # Correctness is unaffected either way — sph_valid masks padded
+        # rows out of every sweep.
         sph_pos[len(scene.spheres):] = sph_pos[len(scene.spheres) - 1]
 
     # Planes
@@ -209,57 +198,22 @@ def build_device_scene(
         pln_valid[i] = True
 
     # Triangles: dereference vertex/normal indices into dense SoA.
-    # Pad to 64 (ops/pallas_intersect.py TRI_CHUNK) whenever the TOTAL
-    # padded lane count exceeds the unrolled kernel's budget — counting
-    # triangles alone would leave boundary scenes (e.g. 180 tris + a few
-    # spheres/planes) too big to unroll yet not chunk-divisible, silently
-    # dropping them to the composed XLA path.
+    # Pad to TRI_CHUNK whenever the TOTAL padded lane count exceeds
+    # MAX_UNROLL_PRIMS; the clustered storage order below uses the same
+    # gate.
     tris = scene.meshes.triangles
     import os as _os
 
-    # The reorder gate is the SAME condition that routes the scene onto
-    # the chunked kernel path (total padded lanes > the unroll budget,
-    # the tri_pad rule below) — gating on len(tris) alone would leave
-    # boundary scenes (few triangles + many spheres) riding the chunked
-    # kernels without Morton-compact chunks (advisor round-3 finding).
     total_small = s_n + p_n + _round_up(len(tris), pad_to)
 
     if with_bvh == "auto":
         # Probe the final triangle lane count under the tri_pad rule
-        # below, then pick the backend's measured-best route (round 5,
-        # PERFORMANCE.md "BVH traversal path"):
-        # - CPU never runs the Pallas kernels; its composed
-        #   walk-vs-sweep crossover is a host property, so the BVH
-        #   attach point stays at the HISTORICAL 262,144-lane boundary
-        #   (the walk wins 3.3x at 15k tris but goldens/bit-compat
-        #   pin the sweep below the boundary) — independent of the
-        #   TPU kernel ceiling, which RT_MAX_CHUNKED_TRIS can raise
-        #   past it.
-        # - TPU: the chunked kernel grid covers everything up to
-        #   MAX_CHUNKED_TRIS (and a raised ceiling is the measured
-        #   winner: 991k tris at 0.11 Mrays/s with the auto G=2
-        #   shortlist vs the walk's 0.002 and the composed sweep's
-        #   0.011 at 256^2);
-        #   past even that, the composed dense sweep stays the winner
-        #   (the per-lane gather walk degrades with lane count and its
-        #   multi-minute compiles blow RPC deadlines), so no BVH.
+        # below, then ask the backend's routing entry.
         t_probe = _round_up(
             len(tris),
             pad_to if total_small <= MAX_UNROLL_PRIMS else TRI_CHUNK,
         )
-        if jax.default_backend() == "cpu":
-            with_bvh = t_probe > CPU_BVH_ABOVE_LANES
-        else:
-            with_bvh = False
-        # RT_BVH_ABOVE_TRIS=N lowers the auto crossover: route scenes
-        # with more than N padded triangle lanes onto the flat-BVH
-        # traversal even where the chunked kernels still apply — and,
-        # since round 5, it also forces the walk past the ceiling on
-        # non-CPU backends if a future toolchain ever flips the
-        # measured TPU ordering (walk 0.002 vs sweep 0.011 at 991k).
-        thresh = _os.environ.get("RT_BVH_ABOVE_TRIS")
-        if not with_bvh and thresh and t_probe > int(thresh):
-            with_bvh = True
+        with_bvh = routing.attach_bvh(t_probe)
     tri_explicit_valid = None
     if (
         total_small > MAX_UNROLL_PRIMS
@@ -270,13 +224,10 @@ def build_device_scene(
         # (Skipped when a BVH is attached: accel/bvh.py's leaf primitive
         # indices refer to the host scene's triangle order — the BVH
         # traversal validation path must keep slot i == host triangle i.)
-        # Chunked-path scenes: cluster triangles so each TRI_CHUNK window
-        # is spatially compact — tight chunk AABBs make the kernels'
-        # per-chunk slab culls fire far more often (suzanne: total chunk
-        # surface area 143 -> 96, coherent 64x128-pixel blocks touch 3.2
-        # of 16 chunks instead of 6.8 — measured). Pure storage-order
-        # changes: the closest hit is a min over the same set; only
-        # exact-tie winners (measure-zero) can differ.
+        # Chunk-padded scenes: cluster triangles so each TRI_CHUNK window
+        # is spatially compact. Pure storage-order changes: the closest
+        # hit is a min over the same set; only exact-tie winners
+        # (measure-zero) can differ.
         # RT_CHUNK_CLUSTER picks the order (scene/cluster.py):
         #   morton  - centroid Morton curve (default)
         #   bvh     - SAH-BVH depth-first leaf order (chunk sumSA -9%
@@ -335,8 +286,8 @@ def build_device_scene(
 
     # Precompute intersection constants. sph_c2 uses float64 (the
     # |c|^2 - r^2 cancellation is precision-sensitive); the triangle
-    # cross products stay in f32 — the composed path and the kernels
-    # consume the same f32 constants, so the sweep is self-consistent.
+    # cross products stay in f32 — every sweep consumes the same f32
+    # constants, so the sweep is self-consistent.
     sph_c2 = (sph_pos.astype(np.float64) ** 2).sum(-1) - (
         sph_radius.astype(np.float64) ** 2
     )

@@ -1,7 +1,7 @@
 """Interactive terminal viewer.
 
-The reference opens a winit window with a fly camera (src/app.rs); a TPU
-host is headless, so the interactive surface here is the terminal:
+The reference opens a winit window with a fly camera (src/app.rs); an
+accelerator host is usually headless, so the interactive surface here is the terminal:
 the progressive render is drawn with ANSI 24-bit half-block characters
 (two pixels per character cell) and the keyboard drives the same
 controller contract (src/camera.rs:184-364):
@@ -311,9 +311,8 @@ def run_viewer(
                 count = 0
             else:
                 # Free-run wavefront stepping: the production render
-                # path (fastest per frame, per-pixel sample counts) —
-                # per-sample step() costs composed-path latency per
-                # frame on TPU. `count` = minimum per-pixel spp.
+                # path (fastest per frame, per-pixel sample counts).
+                # `count` = minimum per-pixel spp.
                 count = renderer.step_freerun(freerun_iters)
                 img = renderer.film.tonemapped()
             frame = _render_ansi(img, cols, rows - 2)

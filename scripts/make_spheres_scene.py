@@ -1,9 +1,9 @@
 """Generate assets/scenes/spheres.toml: a 1000-sphere benchmark scene.
 
 The reference renders arbitrary sphere counts through its BVH
-(/root/reference/src/bvh.rs:13-28); this scene exercises the framework's
-equivalent — sphere chunk windows on the chunked kernel grid
-(ops/pallas_intersect._chunk_spheres). Deterministic (fixed seed): a
+(src/bvh.rs:13-28 of the reference); this scene exercises the
+framework with many spheres (padded to whole TRI_CHUNK windows,
+scene/device.py). Deterministic (fixed seed): a
 10x10x10 jittered grid of mixed plastic/metal spheres over a ground
 plane, camera looking into the cloud.
 

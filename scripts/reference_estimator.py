@@ -8,7 +8,7 @@ numpy float32 — the naive per-primitive intersection formulas
 and the device RNG (:605-661) — with NO code shared with the JAX
 renderer's compute path (rsoderh_raytracing_tpu/ops). It consumes the
 same per-(pixel, sample) RNG streams, so comparing its render against
-the TPU renderer at equal spp is the pixel-matched "RMSE vs reference"
+the JAX renderer at equal spp is the pixel-matched "RMSE vs reference"
 comparison BASELINE.md intends, with this transcription standing in for
 the unrunnable Rust/wgpu binary (no GPU / Rust toolchain here).
 

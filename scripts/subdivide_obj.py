@@ -6,9 +6,8 @@ midpoints (positions averaged, baked vertex normals averaged and
 renormalized — the OBJ contract from src/mesh.rs:60-64 requires
 normals). Two levels take suzanne's 968 triangles to 15,488
 (assets/suzanne_hi.obj, committed); four levels to 247,808
-(assets/suzanne_xhi.obj — the past-the-old-65,536-ceiling benchmark
-for ops/pallas_intersect.py MAX_CHUNKED_TRIS, generated on demand: too
-large to commit).
+(assets/suzanne_xhi.obj — the past-65,536-triangle benchmark,
+generated on demand: too large to commit).
 
 Deterministic: same input -> same output bytes. Run from the repo root:
   python scripts/subdivide_obj.py [levels] [output.obj]

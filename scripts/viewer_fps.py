@@ -4,8 +4,7 @@
 The terminal viewer steps the free-run wavefront once per frame
 (viewer/terminal.py run_viewer); this measures that step + tonemap +
 host readback — the full per-frame device work — without a PTY, at the
-viewer's default 256x144 resolution (VERDICT round 3, weak #5: "no
-measured fps anywhere").
+viewer's default 256x144 resolution .
 
 Two scenarios:
 - converge: camera still, film accumulating (the common case)
@@ -27,12 +26,16 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 
 def main() -> int:
-    os.environ.setdefault("JAX_COMPILATION_CACHE_DIR", "/tmp/jax_cache")
     import numpy as np
 
     from rsoderh_raytracing_tpu import load_scene
     from rsoderh_raytracing_tpu.render.renderer import Renderer
+    from rsoderh_raytracing_tpu.utils.compile_cache import (
+        enable_compile_cache,
+    )
     from rsoderh_raytracing_tpu.viewer import terminal as term
+
+    enable_compile_cache()
 
     scene_name = sys.argv[1] if len(sys.argv) > 1 else "default"
     width = int(sys.argv[2]) if len(sys.argv) > 2 else 256

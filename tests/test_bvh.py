@@ -260,9 +260,8 @@ def test_bvh_above_tris_knob_lowers_auto_crossover(
     house_scene, monkeypatch
 ):
     """RT_BVH_ABOVE_TRIS=N retunes the auto route: scenes with more than
-    N padded triangle lanes attach the flat BVH even where the chunked
-    kernels still apply (the knob applies whatever chunked-vs-BVH
-    crossover the TPU sweep measures, without a code change)."""
+    N padded triangle lanes attach the flat BVH even below the backend's
+    routing crossover (routing.py)."""
     from rsoderh_raytracing_tpu.scene.device import build_device_scene
 
     assert build_device_scene(house_scene, with_bvh="auto").bvh is None

@@ -90,43 +90,6 @@ def test_treelet_pack_invariants(suzanne_scene):
             assert set(pad_rows[:, 0].tolist()) <= real_v0
 
 
-def test_treelet_kernel_wavefront_matches_composed_interpret(
-    monkeypatch, tiny_env, big_tri_scene
-):
-    """The chunked kernel path over a TREELET-clustered scene — where
-    unhittable det==0 pad rows sit INTERLEAVED inside chunks rather than
-    only in the tail — equals the composed body in interpreter mode.
-    Same flip-aware criterion as the chunked-kernel parity test."""
-    from rsoderh_raytracing_tpu.ops import pallas_intersect, pallas_wavefront
-    from rsoderh_raytracing_tpu.render.integrator import camera_pytree
-    from rsoderh_raytracing_tpu.render.wavefront import render_wavefront
-    from rsoderh_raytracing_tpu.scene.device import build_device_scene
-
-    monkeypatch.setenv("RT_CHUNK_CLUSTER", "treelet")
-    ds = build_device_scene(big_tri_scene, pad_to=1)
-    v = np.asarray(ds.tri_valid).reshape(-1, 64)
-    assert (~v).any(axis=1).sum() > 1  # pads interleaved across chunks
-    cam = camera_pytree(big_tri_scene.camera)
-    size = (16, 16)
-
-    composed = np.asarray(
-        render_wavefront(ds, tiny_env, cam, np.uint32(0), size, np.uint32(2))
-    )
-
-    monkeypatch.setenv("RT_PALLAS_INTERPRET", "1")
-    assert pallas_intersect.chunked_trace_supported(ds)
-    assert pallas_wavefront.supported(ds)
-    render_wavefront.clear_cache()
-    kernel = np.asarray(
-        render_wavefront(ds, tiny_env, cam, np.uint32(0), size, np.uint32(2))
-    )
-    render_wavefront.clear_cache()
-
-    close = np.isclose(kernel, composed, rtol=1e-4, atol=1e-5)
-    assert close.mean() > 0.99, f"{(~close).sum()} values diverge"
-    np.testing.assert_allclose(kernel.mean(), composed.mean(), rtol=1e-3)
-
-
 def test_package_render_not_shadowed_by_subpackage():
     """rsoderh_raytracing_tpu.render (the function) must survive deep
     imports of the `render` SUBPACKAGE: before the eager-import fix in

@@ -214,120 +214,6 @@ def test_freerun_sharded_resume_unbalanced(small_scene, uniform_env):
     np.testing.assert_array_equal(sc2.sum(axis=0), c1 + np.asarray(c2))
 
 
-def test_big_scene_kernel_sharded_equals_unsharded(
-    monkeypatch, big_tri_scene, tiny_env
-):
-    """The big-scene kernel path (chunked sweeps + unified winner take +
-    mega-shade; interpret mode) shards like everything else: a tiled +
-    sample-sharded free-run equals the sequential render of the same
-    global samples (max_bounces=1 makes the budget exact)."""
-    import numpy as np
-
-    from rsoderh_raytracing_tpu.ops import pallas_intersect, pallas_wavefront
-    from rsoderh_raytracing_tpu.parallel.sharding import (
-        render_freerun_sharded,
-    )
-    from rsoderh_raytracing_tpu.render.wavefront import render_wavefront
-
-    monkeypatch.setenv("RT_PALLAS_INTERPRET", "1")
-    render_wavefront.clear_cache()
-    ds = build_device_scene(big_tri_scene, pad_to=1)
-    assert pallas_intersect.chunked_trace_supported(ds)
-    assert pallas_wavefront.supported(ds)
-    cam = camera_pytree(big_tri_scene.camera)
-    res = (16, 16)
-    mesh = make_mesh(n_devices=8, tile=2)  # 2 tiles x 4 samples
-
-    base = np.zeros(res, np.uint32)
-    budget = 2
-    summed, counts, _ = render_freerun_sharded(
-        ds, tiny_env, cam, base, mesh, res, np.uint32(budget), 1
-    )
-    np.testing.assert_array_equal(np.asarray(counts), budget * 4)
-
-    expected = np.asarray(
-        render_wavefront(
-            ds, tiny_env, cam, np.uint32(0), res, np.uint32(budget * 4), 1
-        )
-    )
-    render_wavefront.clear_cache()
-    np.testing.assert_allclose(
-        np.asarray(summed), expected, rtol=2e-5, atol=2e-5
-    )
-
-
-def test_sphere_window_kernel_sharded_equals_unsharded(
-    monkeypatch, tiny_env
-):
-    """The sphere-window big-scene path (200-sphere cloud, 4 sphere
-    chunks; interpret mode) shards like the triangle one: a tiled +
-    sample-sharded free-run equals the sequential render of the same
-    global samples. Flip-aware bound: per-shard lane counts change the
-    compiled program shape, and the sphere quadratic amplifies
-    cross-program fma-contraction diffs to whole-path flips on a few
-    pixels (docs/ROUND3_NOTES.md); non-flipped pixels agree tightly."""
-    import numpy as np
-
-    from rsoderh_raytracing_tpu.ops import pallas_intersect, pallas_wavefront
-    from rsoderh_raytracing_tpu.parallel.sharding import (
-        render_freerun_sharded,
-    )
-    from rsoderh_raytracing_tpu.render.wavefront import render_wavefront
-    from rsoderh_raytracing_tpu.scene.types import Plane
-
-    rng = np.random.default_rng(7)
-    scene = Scene(
-        materials=[Material((0.7, 0.6, 0.5), 0.5, 0.0, (0, 0, 0))],
-        spheres=[
-            Sphere(
-                pos=rng.uniform(-8.0, 8.0, 3),
-                radius=float(rng.uniform(0.1, 0.6)),
-                material_id=0,
-            )
-            for _ in range(200)
-        ],
-        planes=[
-            Plane(
-                pos=[-20.0, -9.0, -20.0],
-                forward=[0.0, 0.0, 40.0],
-                right=[40.0, 0.0, 0.0],
-                material_id=0,
-            )
-        ],
-        meshes=PackedMeshes.empty(),
-        camera=Camera(pos=[0, 0, 20], yaw=0, pitch=0, fov_y=1.2),
-    )
-
-    monkeypatch.setenv("RT_PALLAS_INTERPRET", "1")
-    render_wavefront.clear_cache()
-    ds = build_device_scene(scene)
-    assert pallas_intersect._chunk_spheres(ds)
-    assert pallas_wavefront.supported(ds)
-    cam = camera_pytree(scene.camera)
-    res = (16, 16)
-    mesh = make_mesh(n_devices=8, tile=2)  # 2 tiles x 4 samples
-
-    base = np.zeros(res, np.uint32)
-    budget = 2
-    summed, counts, _ = render_freerun_sharded(
-        ds, tiny_env, cam, base, mesh, res, np.uint32(budget), 1
-    )
-    np.testing.assert_array_equal(np.asarray(counts), budget * 4)
-
-    expected = np.asarray(
-        render_wavefront(
-            ds, tiny_env, cam, np.uint32(0), res, np.uint32(budget * 4), 1
-        )
-    )
-    render_wavefront.clear_cache()
-    got = np.asarray(summed)
-    flip = np.abs(got - expected).max(-1) > 1e-2
-    assert flip.mean() < 0.10, f"{int(flip.sum())} whole-path flips"
-    np.testing.assert_allclose(
-        got[~flip], expected[~flip], rtol=1e-3, atol=1e-4
-    )
-
-
 def test_sharded_freerun_checkpoint_roundtrip(
     tmp_path, small_scene, uniform_env
 ):
@@ -423,4 +309,75 @@ def test_sharded_block_lane_order_bitwise(
     np.testing.assert_array_equal(cnt_s, np.asarray(cnt_u))
     np.testing.assert_allclose(
         img_s, np.asarray(img_u), rtol=2e-5, atol=2e-5
+    )
+
+
+def _sphere_cloud_scene():
+    from rsoderh_raytracing_tpu.scene.types import Plane
+
+    rng = np.random.default_rng(7)
+    return Scene(
+        materials=[Material((0.7, 0.6, 0.5), 0.5, 0.0, (0, 0, 0))],
+        spheres=[
+            Sphere(
+                pos=rng.uniform(-8.0, 8.0, 3),
+                radius=float(rng.uniform(0.1, 0.6)),
+                material_id=0,
+            )
+            for _ in range(200)
+        ],
+        planes=[
+            Plane(
+                pos=[-20.0, -9.0, -20.0],
+                forward=[0.0, 0.0, 40.0],
+                right=[40.0, 0.0, 0.0],
+                material_id=0,
+            )
+        ],
+        meshes=PackedMeshes.empty(),
+        camera=Camera(pos=[0, 0, 20], yaw=0, pitch=0, fov_y=1.2),
+    )
+
+
+@pytest.mark.parametrize("name", ["big_tri", "sphere_cloud"])
+def test_chunk_padded_scene_sharded_equals_unsharded(
+    name, big_tri_scene, tiny_env
+):
+    """Chunk-padded scenes (a 200-triangle wall; a 200-sphere cloud)
+    shard like everything else on the composed path: a tiled +
+    sample-sharded free-run equals the sequential render of the same
+    global samples (max_bounces=1 makes the budget exact). Per-shard
+    lane counts change the compiled program shape, and the sphere
+    quadratic can amplify a contraction ulp into a whole-path flip on a
+    few pixels; non-flipped pixels agree tightly."""
+    from rsoderh_raytracing_tpu.parallel.sharding import (
+        render_freerun_sharded,
+    )
+    from rsoderh_raytracing_tpu.render.wavefront import render_wavefront
+
+    scene = big_tri_scene if name == "big_tri" else _sphere_cloud_scene()
+    ds = build_device_scene(scene, pad_to=1 if name == "big_tri" else 8)
+    assert ds.num_triangle_lanes % 64 == 0 and (
+        name == "big_tri" or ds.num_sphere_lanes % 64 == 0
+    )
+    cam = camera_pytree(scene.camera)
+    res = (16, 16)
+    mesh = make_mesh(n_devices=8, tile=2)  # 2 tiles x 4 samples
+
+    budget = 2
+    summed, counts, _ = render_freerun_sharded(
+        ds, tiny_env, cam, np.zeros(res, np.uint32), mesh, res,
+        np.uint32(budget), 1,
+    )
+    np.testing.assert_array_equal(np.asarray(counts), budget * 4)
+    expected = np.asarray(
+        render_wavefront(
+            ds, tiny_env, cam, np.uint32(0), res, np.uint32(budget * 4), 1
+        )
+    )
+    got = np.asarray(summed)
+    flip = np.abs(got - expected).max(-1) > 1e-2
+    assert flip.mean() < 0.10, f"{int(flip.sum())} whole-path flips"
+    np.testing.assert_allclose(
+        got[~flip], expected[~flip], rtol=1e-3, atol=1e-4
     )

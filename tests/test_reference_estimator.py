@@ -51,8 +51,7 @@ def test_pixel_matched_rmse_vs_numpy_reference(assets_dir):
 def test_pixel_matched_rmse_vs_numpy_reference_suzanne(assets_dir):
     """Same pixel-matched anchor on the 968-triangle suzanne scene: the
     triangle intersection sweep, winner attributes, and mesh estimator
-    path (which the big-scene TPU kernels are parity-tested against)
-    agree with the independent WGSL transcription."""
+    path agree with the independent WGSL transcription."""
     from scripts.reference_estimator import render as np_render
 
     from rsoderh_raytracing_tpu import load_scene
@@ -89,13 +88,12 @@ def test_pixel_matched_rmse_vs_numpy_reference_suzanne(assets_dir):
 
 
 def test_suzanne_hi_anchor_golden(assets_dir):
-    """Oracle-derived golden ABOVE 968 triangles (VERDICT round 4 task
-    4): tests/goldens/suzanne_hi_anchor_24_2spp.npy is the INDEPENDENT
+    """Oracle-derived golden ABOVE 968 triangles:
+    tests/goldens/suzanne_hi_anchor_24_2spp.npy is the INDEPENDENT
     numpy transcription's mean radiance for suzanne_hi (15,488
     triangles) at 24x24 x 2spp, equal streams — the scale where the
-    chunked-path machinery (Morton chunk reorder, TRI_CHUNK padding,
-    winner take) actually engages, previously anchored only
-    kernel-vs-composed. Same contract as the suzanne anchor: dense
+    Morton chunk reorder and TRI_CHUNK padding engage. Same contract as
+    the suzanne anchor: dense
     triangle sweeps make whole-path fp flips likelier than house, so
     flips are bounded and RMSE is taken over the non-flipped set.
 
@@ -140,8 +138,8 @@ def test_suzanne_hi_anchor_golden(assets_dir):
 
 
 def test_per_cast_anchor_spheres(assets_dir):
-    """Deterministic per-cast anchor for the 1000-sphere benchmark scene
-    (VERDICT round 3 #4): closest-hit identity, winner priority, and
+    """Deterministic per-cast anchor for the 1000-sphere benchmark
+    scene: closest-hit identity, winner priority, and
     normals against the independent WGSL transcription on identical
     rays. Image-level pixel matching on this scene is fp-chaotic (see
     test_spheres_anchor_golden below), so the sphere-specific estimator
@@ -185,7 +183,7 @@ def test_per_cast_anchor_spheres(assets_dir):
 
 
 def test_spheres_anchor_golden(assets_dir):
-    """Oracle-derived golden for spheres.toml (VERDICT round 3 #4).
+    """Oracle-derived golden for spheres.toml.
 
     tests/goldens/spheres_anchor_32_4spp.npy is the INDEPENDENT numpy
     transcription's mean radiance at 32x32 x 4spp, equal streams.
@@ -250,7 +248,7 @@ def test_spheres_anchor_golden(assets_dir):
 
 
 def test_anchor_derived_golden(assets_dir):
-    """Golden cross-link (VERDICT round 2 #6): one committed golden that
+    """Golden cross-link: one committed golden that
     was generated by the INDEPENDENT numpy transcription, not the
     framework. tests/goldens/house_anchor_32_4spp.npy holds the
     transcription's mean radiance for house @ 32x32 x 4spp; the

@@ -109,179 +109,6 @@ def test_renderer_step_batch_equals_steps(test_scene):
     )
 
 
-def test_kernel_wavefront_matches_composed_interpret(monkeypatch, tiny_env):
-    """The two-Pallas-kernel wavefront body (ops/pallas_wavefront.py)
-    equals the composed XLA body — interpreter mode on CPU, tiny scene
-    (the kernel path compiles slowly in the interpreter; hardware parity
-    at scale is validated separately: identical counts/ray stats, 99.9%
-    of 1-spp pixels bit-equal, rest fma-contraction trajectory flips)."""
-    import numpy as np
-
-    from rsoderh_raytracing_tpu.ops import pallas_wavefront
-    from rsoderh_raytracing_tpu.render.integrator import camera_pytree
-    from rsoderh_raytracing_tpu.render.wavefront import render_wavefront
-    from rsoderh_raytracing_tpu.scene.camera import Camera
-    from rsoderh_raytracing_tpu.scene.device import build_device_scene
-    from rsoderh_raytracing_tpu.scene.types import (
-        Material,
-        PackedMeshes,
-        Plane,
-        Scene,
-        Sphere,
-    )
-
-    scene = Scene(
-        materials=[
-            Material((0.7, 0.3, 0.2), 0.5, 0.0, (0, 0, 0)),
-            Material((0.9, 0.9, 0.9), 0.05, 1.0, (0, 0, 0)),
-        ],
-        spheres=[Sphere(pos=(0.0, 0.0, -3.0), radius=1.0, material_id=1)],
-        planes=[
-            Plane(
-                pos=(-4.0, -1.2, -8.0),
-                right=(8.0, 0.0, 0.0),
-                forward=(0.0, 0.0, 8.0),
-                material_id=0,
-            )
-        ],
-        meshes=PackedMeshes.empty(),
-        camera=Camera(pos=[0, 0, 0], yaw=0, pitch=0, fov_y=1.2),
-    )
-    ds = build_device_scene(scene, pad_to=1)
-    cam = camera_pytree(scene.camera)
-    size = (16, 16)
-
-    composed = np.asarray(
-        render_wavefront(ds, tiny_env, cam, np.uint32(0), size, np.uint32(2))
-    )
-
-    monkeypatch.setenv("RT_PALLAS_INTERPRET", "1")
-    assert pallas_wavefront.supported(ds)
-    assert tiny_env.quad.dtype == np.uint32
-    render_wavefront.clear_cache()
-    kernel = np.asarray(
-        render_wavefront(ds, tiny_env, cam, np.uint32(0), size, np.uint32(2))
-    )
-    render_wavefront.clear_cache()
-
-    close = np.isclose(kernel, composed, rtol=1e-4, atol=1e-5)
-    assert close.mean() > 0.99, f"{(~close).sum()} values diverge"
-    np.testing.assert_allclose(kernel.mean(), composed.mean(), rtol=1e-3)
-
-
-def test_chunked_kernel_wavefront_matches_composed_interpret(
-    monkeypatch, tiny_env, big_tri_scene
-):
-    """The chunked two-pass trace kernel (big-triangle scenes) feeding the
-    shade kernel equals the composed body — interpreter mode on CPU with a
-    200-triangle wall (4 chunks of 64 after padding) plus a sphere and a
-    plane so every winner type and the occlusion accumulators are hit."""
-    import numpy as np
-
-    from rsoderh_raytracing_tpu.ops import pallas_intersect, pallas_wavefront
-    from rsoderh_raytracing_tpu.render.integrator import camera_pytree
-    from rsoderh_raytracing_tpu.render.wavefront import render_wavefront
-    from rsoderh_raytracing_tpu.scene.device import build_device_scene
-
-    ds = build_device_scene(big_tri_scene, pad_to=1)
-    cam = camera_pytree(big_tri_scene.camera)
-    size = (16, 16)
-
-    assert not pallas_intersect.fused_supported(ds)
-    composed = np.asarray(
-        render_wavefront(ds, tiny_env, cam, np.uint32(0), size, np.uint32(2))
-    )
-
-    monkeypatch.setenv("RT_PALLAS_INTERPRET", "1")
-    assert pallas_intersect.chunked_trace_supported(ds)
-    assert pallas_wavefront.supported(ds)
-    render_wavefront.clear_cache()
-    kernel = np.asarray(
-        render_wavefront(ds, tiny_env, cam, np.uint32(0), size, np.uint32(2))
-    )
-    render_wavefront.clear_cache()
-
-    close = np.isclose(kernel, composed, rtol=1e-4, atol=1e-5)
-    assert close.mean() > 0.99, f"{(~close).sum()} values diverge"
-    np.testing.assert_allclose(kernel.mean(), composed.mean(), rtol=1e-3)
-
-
-def test_sphere_window_wavefront_matches_composed_interpret(
-    monkeypatch, tiny_env
-):
-    """End-to-end render parity for SPHERE chunk windows: a 200-sphere
-    cloud (>unroll budget, 4 sphere chunks) through the full chunked
-    two-kernel wavefront equals the composed body in interpreter mode.
-    Flip-aware criterion: XLA contracts the sphere quadratic's fma
-    chains differently across the two compiled programs, and the
-    b^2-4ac cancellation amplifies that to ~1e-6-relative t on
-    ordinary hits, so a few whole-path trajectory flips per image are
-    expected even on CPU (docs/ROUND3_NOTES.md, hardware divergence
-    characterization); non-flipped pixels must agree tightly."""
-    import numpy as np
-
-    from rsoderh_raytracing_tpu.ops import pallas_intersect, pallas_wavefront
-    from rsoderh_raytracing_tpu.render.integrator import camera_pytree
-    from rsoderh_raytracing_tpu.render.wavefront import render_wavefront
-    from rsoderh_raytracing_tpu.scene.camera import Camera
-    from rsoderh_raytracing_tpu.scene.device import build_device_scene
-    from rsoderh_raytracing_tpu.scene.types import (
-        Material,
-        PackedMeshes,
-        Plane,
-        Scene,
-        Sphere,
-    )
-
-    rng = np.random.default_rng(7)
-    scene = Scene(
-        # diffuse-only: keeps radiance bounded (no mirror firefly tail),
-        # so flipped trajectories stay O(1) and the means comparable
-        materials=[Material((0.7, 0.6, 0.5), 0.5, 0.0, (0, 0, 0))],
-        spheres=[
-            Sphere(
-                pos=rng.uniform(-8.0, 8.0, 3),
-                radius=float(rng.uniform(0.1, 0.6)),
-                material_id=0,
-            )
-            for _ in range(200)
-        ],
-        planes=[
-            Plane(
-                pos=[-20.0, -9.0, -20.0],
-                forward=[0.0, 0.0, 40.0],
-                right=[40.0, 0.0, 0.0],
-                material_id=0,
-            )
-        ],
-        meshes=PackedMeshes.empty(),
-        camera=Camera(pos=[0, 0, 20], yaw=0, pitch=0, fov_y=1.2),
-    )
-    ds = build_device_scene(scene)
-    assert pallas_intersect._chunk_spheres(ds)
-    cam = camera_pytree(scene.camera)
-    size = (16, 16)
-
-    composed = np.asarray(
-        render_wavefront(ds, tiny_env, cam, np.uint32(0), size, np.uint32(2))
-    )
-
-    monkeypatch.setenv("RT_PALLAS_INTERPRET", "1")
-    assert pallas_wavefront.supported(ds)
-    render_wavefront.clear_cache()
-    kernel = np.asarray(
-        render_wavefront(ds, tiny_env, cam, np.uint32(0), size, np.uint32(2))
-    )
-    render_wavefront.clear_cache()
-
-    flip = np.abs(kernel - composed).max(-1) > 1e-2
-    assert flip.mean() < 0.10, f"{int(flip.sum())} whole-path flips"
-    np.testing.assert_allclose(
-        kernel[~flip], composed[~flip], rtol=1e-3, atol=1e-4
-    )
-    np.testing.assert_allclose(kernel.mean(), composed.mean(), rtol=2e-2)
-
-
 def test_lane_order_block_roundtrip():
     """Block-major lane order is a bijection: to/from_lanes invert each
     other and the emitted pixel coordinates name each lane's true pixel."""
@@ -390,145 +217,40 @@ def test_spp_sync_resumes_from_counts(test_scene, tiny_env):
     np.testing.assert_array_equal(np.asarray(b_counts), 2)
 
 
-def test_freerun_compaction_bit_transparent(
-    monkeypatch, tiny_env, big_tri_scene
-):
-    """Periodic lane compaction (RT_COMPACT_EVERY / compact_every) is a
-    pure lane PERMUTATION: every lane carries its whole state (pixel
-    identity, RNG stream, film slot), so per-pixel film and counts must
-    be bitwise identical with and without it — only which lanes share a
-    sweep tile (and therefore which chunk steps the culls skip) changes.
-    Interpret mode on the chunked kernel path, enough iterations that
-    several compactions fire mid-flight."""
-    import numpy as np
 
-    from rsoderh_raytracing_tpu.ops import pallas_intersect, pallas_wavefront
-    from rsoderh_raytracing_tpu.render.integrator import camera_pytree
+
+@pytest.mark.parametrize("name", ["house", "suzanne", "big_tri"])
+def test_wavefront_sweep_vs_bvh_route(name, tiny_env, big_tri_scene):
+    """The free-run wavefront renders the same image on either
+    intersection route: same RNG streams and estimator, only the
+    primitive tests differ (expanded vs per-primitive f32 forms), so a
+    rare ray may take another branch — bounded like any cross-program
+    comparison."""
+    import os
+
+    from rsoderh_raytracing_tpu import load_scene
     from rsoderh_raytracing_tpu.render.wavefront import render_freerun
-    from rsoderh_raytracing_tpu.scene.device import build_device_scene
 
-    ds = build_device_scene(big_tri_scene, pad_to=1)
-    cam = camera_pytree(big_tri_scene.camera)
-    size = (16, 16)
-
-    monkeypatch.setenv("RT_PALLAS_INTERPRET", "1")
-    assert pallas_intersect.chunked_trace_supported(ds)
-    assert pallas_wavefront.supported(ds)
-
-    render_freerun.clear_cache()
-    base_img, base_counts = render_freerun(
-        ds, tiny_env, cam, np.uint32(0), size, np.uint32(9),
-        compact_every=0,
-    )
-    compact_img, compact_counts = render_freerun(
-        ds, tiny_env, cam, np.uint32(0), size, np.uint32(9),
-        compact_every=2,
-    )
-    render_freerun.clear_cache()
-
-    np.testing.assert_array_equal(
-        np.asarray(compact_counts), np.asarray(base_counts)
-    )
-    np.testing.assert_array_equal(
-        np.asarray(compact_img), np.asarray(base_img)
-    )
-
-
-def test_freerun_compaction_key_modes_bit_transparent(
-    monkeypatch, tiny_env, big_tri_scene
-):
-    """Every RT_COMPACT_KEY composition (and a non-default Morton grid
-    resolution) is STILL a pure lane permutation — the ablation knobs
-    (VERDICT r4 task 1b) change only which lanes cluster, never the
-    per-pixel output. Knobs are trace-time constants, so the jit cache
-    must be cleared between settings."""
-    import numpy as np
-
-    from rsoderh_raytracing_tpu.ops import pallas_intersect
-    from rsoderh_raytracing_tpu.render.integrator import camera_pytree
-    from rsoderh_raytracing_tpu.render.wavefront import render_freerun
-    from rsoderh_raytracing_tpu.scene.device import build_device_scene
-
-    ds = build_device_scene(big_tri_scene, pad_to=1)
-    cam = camera_pytree(big_tri_scene.camera)
-    size = (16, 16)
-
-    monkeypatch.setenv("RT_PALLAS_INTERPRET", "1")
-    assert pallas_intersect.chunked_trace_supported(ds)
-
-    render_freerun.clear_cache()
-    base_img, base_counts = render_freerun(
-        ds, tiny_env, cam, np.uint32(0), size, np.uint32(9),
-        compact_every=0,
-    )
-    for knob, value in (
-        ("RT_COMPACT_KEY", "dead"),
-        ("RT_COMPACT_KEY", "morton"),
-        ("RT_COMPACT_KEY", "dir"),
-        ("RT_COMPACT_MORTON_BITS", "7"),
-    ):
-        monkeypatch.setenv(knob, value)
-        render_freerun.clear_cache()
+    if name == "big_tri":
+        scene = big_tri_scene
+    else:
+        scene = load_scene(
+            os.path.join(os.path.dirname(os.path.dirname(__file__)),
+                         "assets", "scenes", f"{name}.toml")
+        )
+    cam = camera_pytree(scene.camera)
+    res = (16, 16)
+    out = {}
+    for route, with_bvh in (("sweep", False), ("bvh", True)):
+        ds = build_device_scene(scene, with_bvh=with_bvh)
         img, counts = render_freerun(
-            ds, tiny_env, cam, np.uint32(0), size, np.uint32(9),
-            compact_every=2,
+            ds, tiny_env, cam, np.zeros(res, np.uint32), res,
+            np.uint32(6), 4,
         )
-        monkeypatch.delenv(knob)
-        np.testing.assert_array_equal(
-            np.asarray(counts), np.asarray(base_counts), err_msg=f"{knob}={value}"
-        )
-        np.testing.assert_array_equal(
-            np.asarray(img), np.asarray(base_img), err_msg=f"{knob}={value}"
-        )
-    render_freerun.clear_cache()
-
-
-def test_auto_compaction_default_scale_gated(monkeypatch, big_tri_scene):
-    """Shortlist-scale chunked scenes (> SHORTLIST_MIN_CHUNKS chunks)
-    default to compact_every=2 — the measured optimum of the round-4
-    cadence sweep — while small chunk grids keep 0 and RT_COMPACT_EVERY
-    overrides both ways. Compaction is bit-transparent (test above), so
-    the default is throughput-only."""
-    from types import SimpleNamespace
-
-    import numpy as np
-
-    from rsoderh_raytracing_tpu.ops import pallas_intersect as pint
-    from rsoderh_raytracing_tpu.render import wavefront as wf
-    from rsoderh_raytracing_tpu.scene.device import build_device_scene
-
-    monkeypatch.setenv("RT_PALLAS_INTERPRET", "1")
-    monkeypatch.delenv("RT_COMPACT_EVERY", raising=False)
-
-    big = SimpleNamespace(
-        tri_valid=np.ones(
-            pint.TRI_CHUNK * (pint.SHORTLIST_MIN_CHUNKS + 1), np.int32
-        ),
-        sph_radius=np.zeros(0, np.float32),
-        pln_valid=np.zeros(0, np.int32),
-        bvh=None,
-    )
-    assert pint.scene_chunk_count(big) > pint.SHORTLIST_MIN_CHUNKS
-    assert pint.chunked_trace_supported(big)
-    assert wf._compact_every_default(big) == 2
-
-    # huge grids (> 1024 chunks, suzanne_xhi-class) compact every
-    # iteration: K=1/2/4 measured 0.89/0.84/0.61 Mrays/s there
-    huge = SimpleNamespace(
-        tri_valid=np.ones(pint.TRI_CHUNK * 1025, np.int32),
-        sph_radius=np.zeros(0, np.float32),
-        pln_valid=np.zeros(0, np.int32),
-        bvh=None,
-    )
-    assert wf._compact_every_default(huge) == 1
-
-    # small chunk grid (the fixture sits just past the unroll budget):
-    # auto stays off
-    ds = build_device_scene(big_tri_scene, pad_to=1)
-    assert pint.scene_chunk_count(ds) <= pint.SHORTLIST_MIN_CHUNKS
-    assert wf._compact_every_default(ds) == 0
-
-    monkeypatch.setenv("RT_COMPACT_EVERY", "5")
-    assert wf._compact_every_default(big) == 5
-    monkeypatch.setenv("RT_COMPACT_EVERY", "0")
-    assert wf._compact_every_default(big) == 0
+        out[route] = (np.asarray(img), np.asarray(counts))
+    (img_s, cnt_s), (img_b, cnt_b) = out["sweep"], out["bvh"]
+    assert (cnt_s == cnt_b).mean() > 0.97
+    same = cnt_s == cnt_b
+    close = np.isclose(img_s[same], img_b[same], rtol=1e-4, atol=1e-5)
+    assert close.mean() > 0.97, f"{(~close).sum()} values diverge"
+    np.testing.assert_allclose(img_s.mean(), img_b.mean(), rtol=2e-2)
